@@ -7,16 +7,25 @@ Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels from quantized_training_torch/csrc
      (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and at the edges, beside a stated tolerance, and
+     main paths' shapes and at the edges, beside a stated tolerance, and
      show that the tolerance is tight: a planted fault (the plain output of
-     a kernel that drops one K group, one key tile or one split's values)
-     must breach it;
+     a kernel that drops one K group, one key tile or one split's values,
+     or leaves one tile unrounded) must breach it.  The elementwise rounding
+     kernel must be bit-equal to its plain version over every bf16 pattern,
+     2^20 random f32 patterns and the main path's tensor shapes, for six
+     formats;
   3. time each kernel, its plain version and one PyTorch library call that
      computes the same function (a yardstick only: the port never calls
      it), beside the least time the card could take (``bound_ms``);
   4. a 2-layer LLaMA-2 7B-width model: the kernel path's logits against the
      plain path's (the same model on the CPU);
-  5. serve at full LLaMA-2 7B width (random seeded weights, w4a16 group 64,
+  5. the posit8 fusion ladder of bench.py: a 2-layer model at its width,
+     kernel path against plain path at residual_fusion (each side also run
+     again on the same input, with a digest of its logits); then the full
+     configuration (8 layers, batch 4 x 1024, weights folded offline):
+     forward tokens/s at every FUSION_LADDER rung and in bf16, peak memory,
+     and the launch counters read around one residual_fusion forward;
+  6. serve at full LLaMA-2 7B width (random seeded weights, w4a16 group 64,
      int4 cache P=2048 R=128, fused qkv, 8 slots): ~16 greedy requests
      through ContinuousBatchingEngine, with every kernel's launch counter
      read around that run.
@@ -25,8 +34,10 @@ The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
+import hashlib
 import json
 import math
+import platform
 import subprocess
 import sys
 import time
@@ -332,6 +343,227 @@ def kernel_phases(torch, timer):
     return rows
 
 
+def bit_mismatches(got, want):
+    """Lanes whose bits differ, NaN lanes counting as equal to each other:
+    (count, first few flat indices)."""
+    import torch
+    itype = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    both_nan = torch.isnan(got.float()) & torch.isnan(want.float())
+    bad = (got.view(itype) != want.view(itype)) & ~both_nan
+    idx = torch.nonzero(bad.flatten()).flatten()
+    return int(idx.numel()), idx[:4].tolist()
+
+
+def rounding_kernel_phases(torch, timer):
+    """Slice 2's kernels: the elementwise rounding, the two-pass flash
+    forward with its output epilogue, and the fused quantize-matmul."""
+    from quantized_training_torch.numerics import quantize_fn, quantize_fn_unit
+    from quantized_training_torch.ops import flash_attention as fa
+    from quantized_training_torch.ops import quantize_elemwise as qe
+    from quantized_training_torch.ops import quantized_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+    bf16 = torch.bfloat16
+    rows = {}
+    failures = []
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # ---- elementwise rounding: exact --------------------------------------
+    log("phase 2/3: quantize_elemwise (bit-equal to the plain version; "
+        "NaN lanes compared as NaN)")
+    universe = torch.arange(2 ** 16, dtype=torch.int32, device=dev).to(
+        torch.int16).view(bf16)
+    f32_bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 20,),
+                             dtype=torch.int32, device=dev, generator=gen)
+    cases = [("all bf16", universe), ("all bf16 but the first (unaligned, "
+                                      "ragged)", universe[1:]),
+             ("2^20 random f32 patterns", f32_bits.view(torch.float32))]
+    for dtype in ("posit8_1", "posit16_1", "e4m3", "e5m2", "fp6_e3m2",
+                  "int8"):
+        qfn = quantize_fn(dtype)
+        for name, x in cases:
+            got = qe.quantize_elemwise(x, qfn.fmt)
+            want = qe.quantize_elemwise_plain(x, qfn)
+            torch.cuda.synchronize()
+            n_bad, first = bit_mismatches(got, want)
+            cpu_bad, _ = bit_mismatches(want.cpu(),
+                                        qe.quantize_elemwise_plain(x.cpu(), qfn))
+            log(f"  {dtype}, {name}: {n_bad} lanes differ from the plain "
+                f"version{f' (first {first})' if n_bad else ''}; the plain "
+                f"version on the card differs from the CPU's in {cpu_bad}")
+            if n_bad:
+                failures.append(f"quantize_elemwise {dtype} {name}")
+
+    # At the main path's shapes the grid-stride loop (at most 132 * 16
+    # blocks of 256 threads) takes several rounds: bench.py's bf16 GEMM
+    # inputs and q/k/v, the same with a 2-byte offset (the scalar loop), and
+    # an f32 tensor.  Magnitudes spread over 2^-24..2^24 reach every regime.
+    def spread(*shape, dtype):
+        return (randn(*shape) * torch.exp2(randn(*shape) * 6)).to(dtype)
+
+    down = spread(4096, 5504, dtype=bf16)
+    path_cases = [("(4096, 5504) bf16, down_proj input", down),
+                  ("(4096, 2048) bf16, q/k/v/o and gate/up input",
+                   spread(4096, 2048, dtype=bf16)),
+                  ("(4, 16, 1024, 128) bf16, q/k/v before flash",
+                   spread(4, 16, 1024, 128, dtype=bf16)),
+                  ("(4096, 5504) bf16 less its first element (unaligned)",
+                   down.flatten()[1:]),
+                  ("(4096, 1024) f32", spread(4096, 1024, dtype=torch.float32))]
+    for dtype in ("posit8_1", "posit16_1", "e4m3", "e5m2", "fp6_e3m2",
+                  "int8"):
+        qfn = quantize_fn(dtype)
+        for name, x in path_cases:
+            n_bad, first = bit_mismatches(qe.quantize_elemwise(x, qfn.fmt),
+                                          qe.quantize_elemwise_plain(x, qfn))
+            log(f"  {dtype}, {name}: {n_bad} lanes differ from the plain "
+                f"version{f' (first {first})' if n_bad else ''}")
+            if n_bad:
+                failures.append(f"quantize_elemwise {dtype} {name}")
+    del path_cases
+
+    p8 = quantize_fn("posit8_1")
+    M, N = 4096, 5504
+    x = down
+    ms = timer(lambda: qe.quantize_elemwise(x, p8.fmt))
+    plain = timer(lambda: qe.quantize_elemwise_plain(x, p8))
+    lib = timer(lambda: x.to(torch.float8_e4m3fn).to(bf16))
+    b, by = bound_ms(2 * x.numel() * 2, 0)
+    log(f"  time posit8_1 ({M}, {N}) bf16: kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} (e4m3fn cast round trip) "
+        f"bound_ms {b:.4f} ({by})")
+    rows["quantize_elemwise"] = dict(
+        name="quantize_elemwise", route="cuda",
+        source="quantized_training_torch/csrc/quantize_elemwise.cu",
+        replaces="quantized_training_tpu/ops/pallas/quantize_elemwise.py:30",
+        max_abs_err=0.0, shape=f"posit8_1 bf16 ({M}, {N}) (down_proj input)",
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+
+    # ---- two-pass flash: p rounded to posit8_1 ----------------------------
+    # The kernel's row logsumexp (online max and sum) and the plain one
+    # (torch.logsumexp) differ in the last f32 bits, so a p that lies within
+    # an ulp of a bf16 or posit rounding boundary can land one posit step
+    # away; the tolerance is set from the least atol each case needed.
+    # On the H100 the worst case needed an atol of 3.7e-3 (B=4, S=1024);
+    # the planted fault below needs 4.3e-2.
+    atol, rtol = 6e-3, 2e-2
+    pq, oq = quantize_fn_unit("posit8_1"), quantize_fn("posit8_1")
+    log(f"phase 2/3: flash_attn_fwd_two_pass, p and out rounded to posit8_1 "
+        f"(tolerance {atol} + {rtol}*|plain|)")
+    max_err = 0.0
+    for B, H, KV, S, D in [(4, 16, 16, 1024, 128), (1, 16, 4, 512, 128)]:
+        scale = 1 / math.sqrt(D)
+        q = randn(B, H, S, D, dtype=bf16)
+        k = randn(B, KV, S, D, dtype=bf16)
+        v = randn(B, KV, S, D, dtype=bf16)
+        got = fa.flash_attention(q, k, v, p_qfn=pq)
+        want = fa.naive_attention(q, k, v, scale=scale, p_qfn=pq)
+        torch.cuda.synchronize()
+        label = f"B={B} H={H} KV={KV} S=T={S} D={D}"
+        ok, err = check_close(label, got, want, atol, rtol)
+        max_err = max(max_err, err)
+        if not ok:
+            failures.append(f"flash_attn_fwd_two_pass {label}")
+        got_o = fa.flash_attention(q, k, v, p_qfn=pq, out_qfn=oq)
+        n_bad, first = bit_mismatches(got_o, qe.quantize_elemwise(got, oq.fmt))
+        log(f"  {label}: flash(out_qfn) against the rounding kernel on "
+            f"flash(): {n_bad} lanes differ")
+        if n_bad:
+            failures.append(f"flash out_qfn epilogue {label}")
+        if S == 1024:
+            # planted fault: rows 0..127 leave p unrounded in key tile 0..31
+            if KV != H:
+                k, v = (torch.repeat_interleave(t, H // KV, dim=1)
+                        for t in (k, v))
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            pos = torch.arange(S, device=dev)
+            s = torch.where(pos[None, :] <= pos[:, None], s,
+                            torch.full_like(s, fa.NEG_INF))
+            p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+            pb = p.to(bf16)
+            pr = pq.plain(pb)
+            pr[:, :, :128, :32] = pb[:, :, :128, :32]
+            faulted = torch.matmul(pr.float(), v.float()).to(bf16)
+            del s, p, pb, pr
+            planted_fault("two-pass S=1024: rows 0..127 leave p unrounded "
+                          "in keys 0..31", got, faulted, atol, rtol, failures)
+
+    def flash2_row(B=4, H=16, S=1024, D=128):
+        q, k, v = (randn(B, H, S, D, dtype=bf16) for _ in range(3))
+        scale = 1 / math.sqrt(D)
+        ms = timer(lambda: fa.flash_attention(q, k, v, p_qfn=pq, out_qfn=oq))
+        plain = timer(lambda: fa.naive_attention(q, k, v, scale=scale,
+                                                 p_qfn=pq, out_qfn=oq))
+        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        # the function's own work: one causal q.k and one p.v product
+        b, by = bound_ms(4 * B * H * S * D * 2, 4 * S * S * D * B * H / 2)
+        log(f"  time B={B} H={H} S={S}: kernel_ms {ms:.4f} plain_ms "
+            f"{plain:.4f} library_ms {lib:.4f} (SDPA, unrounded) bound_ms "
+            f"{b:.4f} ({by})")
+        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                    bound_by=by)
+
+    rows["flash_attn_fwd_two_pass"] = dict(
+        name="flash_attn_fwd_two_pass", route="cuda",
+        source="quantized_training_torch/csrc/flash_attn_fwd.cu",
+        replaces="quantized_training_tpu/ops/pallas/flash_attention.py:66",
+        max_abs_err=max_err,
+        shape="B=4 H=16 S=1024 D=128, p and out posit8_1", **flash2_row())
+
+    # ---- fused quantize-matmul --------------------------------------------
+    # The kernel and the plain version multiply the same rounded x: only
+    # the f32 summation order and the output rounding differ.
+    atol, rtol = 1e-4, 1e-2
+    log(f"phase 2/3: quantized_matmul, x rounded to posit8_1 (tolerance "
+        f"{atol} + {rtol}*|plain|)")
+    max_err = 0.0
+    mm_rows = {}
+    for M, K, N in [(4096, 2048, 2048), (4096, 2048, 5504),
+                    (4096, 5504, 2048), (100, 2048, 520)]:
+        x = randn(M, K, dtype=bf16)
+        w = randn(K, N, dtype=bf16, scale=1 / math.sqrt(K))
+        got = qmm.quantized_matmul(x, w, x_qfn=p8)
+        want = qmm.quantized_matmul_plain(x, w, p8)
+        torch.cuda.synchronize()
+        ok, err = check_close(f"M={M} K={K} N={N}", got, want, atol, rtol)
+        max_err = max(max_err, err)
+        if not ok:
+            failures.append(f"quantized_matmul M={M} K={K} N={N}")
+        if (M, K, N) == (4096, 2048, 2048):
+            xf = p8.plain(x)
+            xf[:, 1024:1056] = x[:, 1024:1056]
+            planted_fault("M=4096 K=2048 N=2048: K tile 1024..1055 "
+                          "unrounded", got,
+                          torch.matmul(xf.float(), w.float()).to(bf16),
+                          atol, rtol, failures)
+        if M == 4096:
+            ms = timer(lambda: qmm.quantized_matmul(x, w, x_qfn=p8))
+            plain = timer(lambda: qmm.quantized_matmul_plain(x, w, p8))
+            pair = timer(lambda: torch.matmul(qe.quantize_elemwise(x, p8.fmt),
+                                              w))
+            mm = timer(lambda: torch.matmul(x, w))
+            b, by = bound_ms((M * K + K * N + M * N) * 2, 2 * M * K * N)
+            log(f"  time M={M} K={K} N={N}: kernel_ms {ms:.4f} plain_ms "
+                f"{plain:.4f} rounding kernel + torch.matmul {pair:.4f} "
+                f"torch.matmul alone {mm:.4f} bound_ms {b:.4f} ({by})")
+            mm_rows[(M, K, N)] = dict(ms=ms, plain_ms=plain, library_ms=pair,
+                                      matmul_ms=mm, bound_ms=b, bound_by=by)
+    rows["quantized_matmul"] = dict(
+        name="quantized_matmul", route="cuda",
+        source="quantized_training_torch/csrc/quantized_matmul.cu",
+        replaces="quantized_training_tpu/ops/pallas/quantized_matmul.py:31",
+        max_abs_err=max_err,
+        shape="M=4096 K=2048 N=5504 (gate/up), library = rounding kernel + "
+              "torch.matmul", **mm_rows[(4096, 2048, 5504)])
+    if failures:
+        fail("kernel disagrees with its plain version: " + ", ".join(failures))
+    return rows
+
+
 # ------------------------------------------------------------------ models
 def serving_config(qt, layers):
     from dataclasses import replace
@@ -388,12 +620,201 @@ def parity_phase(torch, qt):
         fail("kernel path disagrees with the plain path")
 
 
+def bench_config(qt, layers):
+    """bench.py's model (bench.py:23-45)."""
+    return qt.LlamaConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+        num_hidden_layers=layers, num_attention_heads=16,
+        num_key_value_heads=16, max_position_embeddings=1024,
+        use_flash_attention=True)
+
+
+def rung_config(qt, rung):
+    """bench.py's quantized config at a ladder rung, weight specs stripped
+    (the weights are folded offline); None for the bf16 baseline."""
+    if rung == "bf16":
+        return None
+    qc = qt.QuantConfig(global_qconfig=qt.QConfig.from_strs(
+        activation="posit8_1", weight="posit8_1"))
+    return qt.strip_weight_specs(
+        qc.with_fusion(forward=dict(qt.FUSION_LADDER)[rung]))
+
+
+def folded_params(qt, cfg, device):
+    qc = qt.QuantConfig(global_qconfig=qt.QConfig.from_strs(
+        activation="posit8_1", weight="posit8_1"))
+    return qt.fold_quantized_weights(
+        qt.random_params(cfg, None, seed=SEED, device=device), qc)
+
+
+def ladder_parity_phase(torch, qt):
+    """2 layers at bench.py's width, residual_fusion: the card's kernel path
+    against the plain path (the same folded weights on the CPU).
+
+    posit8 rounding at every GEMM input turns a last-bit difference (cuBLAS
+    and the CPU sum in other orders; the flash kernel's logsumexp is not
+    torch.logsumexp's) into a whole posit step wherever it meets a rounding
+    boundary, so the check is statistical: the relative Frobenius error of
+    the logits and the share of logits outside 0.15 + 0.05*|plain| (the
+    elementwise bound of the port's CPU parity tests).  On the H100 the
+    kernel path read 0.0008-0.0037 and 0; the planted fault (the flash
+    kernel leaving p unrounded) reads 0.16 and 0.21-0.23."""
+    from quantized_training_torch.models import llama
+    max_rel, max_bad = 0.05, 0.005
+    log(f"phase 5: 2-layer bench.py-width model at residual_fusion, kernel "
+        f"path vs plain path (relative error at most {max_rel}, at most "
+        f"{max_bad} of the logits outside 0.15 + 0.05*|plain|)")
+    cfg = bench_config(qt, 2)
+    qc = rung_config(qt, "residual_fusion")
+    params = folded_params(qt, cfg, "cuda")
+    gpu = qt.LlamaForCausalLM(cfg, qc, device="cuda")
+    gpu.load_state_dict(params, assign=True)
+    cpu = qt.LlamaForCausalLM(cfg, qc, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in params.items()}, assign=True)
+    del params
+
+    def reading(name, got, want):
+        err = (got - want).abs()
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        bad = float((err > 0.15 + 0.05 * want.abs()).float().mean())
+        same = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"  {name}: relative error {rel:.5f}, outside {bad:.6f}, max abs "
+            f"err {float(err.max()):.4f}, greedy tokens equal at {same} of "
+            f"{got.shape[1]}")
+        return rel <= max_rel and bad <= max_bad
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()[:16]
+
+    # A second witness for a reading that moves between calls: each side
+    # run again on the same input within this call, and a digest of each
+    # side's logits, which can be compared across calls and hosts.
+    log(f"  host CPU: {platform.machine()}, torch CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, "
+        f"{torch.get_num_threads()} threads")
+    ok = True
+    with torch.no_grad():
+        for seed in (0, 1):
+            ids = torch.randint(0, cfg.vocab_size, (1, 512),
+                                generator=torch.Generator().manual_seed(seed))
+            lc, _ = cpu(ids)
+            lg, _ = gpu(ids.cuda())
+            lg = lg.cpu()
+            ok = reading(f"seed {seed}", lg, lc) and ok
+            gpu_moves = max(float((gpu(ids.cuda())[0].cpu() - lg).abs().max())
+                            for _ in range(3))
+            cpu_moves = float((cpu(ids)[0] - lc).abs().max())
+            log(f"    repeated on the same input: the kernel path moves by "
+                f"at most {gpu_moves:.6g} over 3 more forwards, the plain "
+                f"path by {cpu_moves:.6g} over 1; digests kernel path "
+                f"{digest(lg)}, plain path {digest(lc)}")
+        unit = llama.quantize_fn_unit
+        llama.quantize_fn_unit = lambda dtype: None
+        try:
+            faulted, _ = gpu(ids.cuda())
+        finally:
+            llama.quantize_fn_unit = unit
+        if reading("planted fault, flash leaves p unrounded (seed 1)",
+                   faulted.cpu(), lc):
+            fail("the parity check misses p left unrounded")
+    del gpu, cpu
+    if not ok:
+        fail("kernel path disagrees with the plain path at residual_fusion")
+
+
+def profile_forward(torch, model, ids, forward_ms):
+    """Device time by kernel in one forward (torch.profiler), and the
+    device's idle share of the timed forward."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(ids)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log("  profile: the trace holds no device time (not measured)")
+        return
+    log(f"  profile: device busy {busy:.3f} ms of the {forward_ms:.3f} ms "
+        f"forward, idle share {max(0.0, 1 - busy / forward_ms):.4f}; by "
+        "kernel (ms, launches):")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} {e.count:5d}  "
+            f"{e.key[:90]}")
+
+
+def ladder_phase(torch, qt):
+    """bench.py's configuration at full width: tokens/s at every rung and in
+    bf16, and the launch counters around one residual_fusion forward."""
+    from quantized_training_torch.ops import launch_counts, \
+        reset_launch_counts
+
+    B, S, reps = 4, 1024, 5
+    log(f"phase 5: bench.py ladder, 8 layers, hidden 2048, batch {B} x {S}, "
+        f"posit8_1 folded weights; median of {reps} forwards after a "
+        "warm-up")
+    cfg = bench_config(qt, 8)
+    params = folded_params(qt, cfg, "cuda")
+    ids = torch.randint(0, cfg.vocab_size, (B, S),
+                        generator=torch.Generator().manual_seed(SEED)).cuda()
+    result, launches = {}, None
+    for rung in ["bf16"] + [r for r, _ in qt.FUSION_LADDER]:
+        model = qt.LlamaForCausalLM(cfg, rung_config(qt, rung), device="cuda")
+        model.load_state_dict(params, assign=True)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            logits, _ = model(ids)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if tuple(logits.shape) != (B, S, cfg.vocab_size) or not bool(
+                    torch.isfinite(logits).all()):
+                fail(f"ladder {rung}: logits {tuple(logits.shape)} not "
+                     "finite")
+            del logits
+            times = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                model(ids)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        ms = sorted(times)[reps // 2]
+        result[rung] = {"forward_ms": ms, "tokens_per_s": B * S / ms * 1e3,
+                        "peak_gib": peak}
+        log(f"  {rung}: {ms:.3f} ms/forward, "
+            f"{result[rung]['tokens_per_s']:.1f} tokens/s, peak "
+            f"{peak:.2f} GiB, launches {counts}")
+        if rung in ("bf16", "residual_fusion"):
+            profile_forward(torch, model, ids, ms)
+        if rung == "residual_fusion":
+            launches = counts
+        del model
+    base = result["bf16"]["tokens_per_s"]
+    for rung in result:
+        result[rung]["vs_baseline"] = result[rung]["tokens_per_s"] / base
+    log("ladder " + json.dumps(result))
+    log(f"  residual_fusion vs_baseline "
+        f"{result['residual_fusion']['vs_baseline']:.4f}")
+    want = {"quantize_elemwise": 6 * cfg.num_hidden_layers + 1,
+            "flash_attn_fwd_two_pass": cfg.num_hidden_layers}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"one residual_fusion forward launched {launches}, expected "
+             f"{want}")
+    return launches
+
+
 def serve_phase(torch, qt):
-    from quantized_training_torch.ops import KERNEL_WRAPPERS, \
+    from quantized_training_torch.ops import launch_counts, \
         reset_launch_counts
     import numpy as np
 
-    log("phase 5: serve LLaMA-2 7B width, 32 layers, w4a16/64, int4 cache "
+    log("phase 6: serve LLaMA-2 7B width, 32 layers, w4a16/64, int4 cache "
         "P=2048 R=128, 8 slots, 16 greedy requests x 32 new tokens")
     cfg, qc = serving_config(qt, 32)
     torch.cuda.reset_peak_memory_stats()
@@ -441,7 +862,7 @@ def serve_phase(torch, qt):
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    launches = launch_counts()
 
     generated = sum(len(t) for t in results.values())
     log(f"  requests {len(results)}, prompt tokens {sum(lengths)}, bucket "
@@ -463,7 +884,8 @@ def serve_phase(torch, qt):
         if len(toks) != new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             fail(f"request {rid}: {len(toks)} tokens, {toks[:8]}...")
-    if any(n == 0 for n in launches.values()):
+    serving = ("affine_w4_matmul", "flash_attn_fwd", "int_kv_decode")
+    if any(launches[k] == 0 for k in serving):
         fail(f"a kernel of the serving path was never launched: {launches}")
 
     # What bounds a decode step: the host's time to enqueue one decode
@@ -507,6 +929,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(sys.version.split()[0], torch.__version__, torch.version.cuda,
         torch.cuda.get_device_name(0))
 
@@ -522,13 +945,18 @@ def main():
 
     timer = Timer(torch)
     rows = kernel_phases(torch, timer)
+    rows.update(rounding_kernel_phases(torch, timer))
     parity_phase(torch, qt)
-    launches = serve_phase(torch, qt)
-    for name, n in launches.items():
-        key = {"affine_matmul": "affine_w4_matmul",
-               "flash_attention": "flash_attn_fwd",
-               "int_kv_decode_attention": "int_kv_decode"}[name]
-        rows[key]["launches"] = n
+    ladder_parity_phase(torch, qt)
+    ladder = ladder_phase(torch, qt)
+    serving = serve_phase(torch, qt)
+    # each kernel's launches in the main path that runs it: the serving run
+    # (slice 1) or one residual_fusion forward (slice 2); the fused
+    # quantize-matmul is on neither
+    for key, row in rows.items():
+        row["launches"] = (serving[key] if key in (
+            "affine_w4_matmul", "flash_attn_fwd", "int_kv_decode")
+            else ladder[key])
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

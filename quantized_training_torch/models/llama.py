@@ -6,11 +6,16 @@ bf16 activations, f32 RoPE / softmax / norm statistics, GQA, an optional
 fused q/k/v projection, and the two-tier quantized KV cache for serving.
 Attention runs one of three paths:
 
-  * flash prefill (ops/flash_attention.py) when the config asks for it, no
-    mask is needed and the shapes pass the gate below;
+  * flash attention (ops/flash_attention.py) when the config asks for it,
+    no mask is needed, the shapes pass the gate below and every attention
+    matmul site is off or a direct rounding: q/k/v are rounded before the
+    kernel, the probabilities inside it (two-pass form) and o_proj's input
+    rounding rides its output write;
   * fused int4 decode (ops/int_kv_attention.py) over the cache's codes,
     scales and residual ring, visibility taken from the cache lengths;
-  * naive attention over materialized K/V with an additive mask.
+  * naive attention over materialized K/V with an additive mask, every
+    quantization site explicit (scores scaling, softmax input, both
+    matmuls' inputs).
 
 The model speaks (B, S, H, D).  ``forward`` returns ``(logits, caches)``:
 with ``use_cache=True`` an S > 1 call is a prefill that builds one
@@ -25,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..numerics import quantize_fn, quantize_fn_unit
 from ..ops.flash_attention import flash_attention
 from ..ops.int_kv_attention import int_kv_decode_attention
 from ..quantize.config import OpCategory, QuantConfig
@@ -33,7 +39,7 @@ from ..serving.kv_cache import (
     append_to_cache, cache_kv, init_cache, per_slot_mask, prefill_cache,
 )
 from ..utils import resolve_device
-from .layers import Embed, QDense, QRMSNorm, QuantMixin
+from .layers import Embed, QDense, QRMSNorm, QSoftmax, QuantMixin
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "fuse_qkv_params", "causal_mask"]
@@ -148,6 +154,16 @@ def causal_mask(batch: int, q_len: int, kv_len: int, q_offset=0, *,
     return mask[None, None].expand(batch, 1, q_len, kv_len)
 
 
+def _direct_dtype(spec):
+    """The dtype string if ``spec`` is a direct rounding (flash can host
+    it), False if it needs machinery flash cannot host, None if off."""
+    if spec is None:
+        return None
+    if spec.qscheme is None and spec.outlier_threshold is None:
+        return spec.dtype
+    return False
+
+
 class LlamaAttention(nn.Module, QuantMixin):
     def __init__(self, cfg: LlamaConfig, qconfig: Optional[QuantConfig],
                  path: str, device):
@@ -166,6 +182,8 @@ class LlamaAttention(nn.Module, QuantMixin):
         self.o_proj = QDense(H * D, cfg.hidden_size, qconfig=qconfig,
                              path=f"{path}.o_proj", dtype=cfg.torch_dtype,
                              device=device)
+        self.softmax = QSoftmax(qconfig=qconfig, path=f"{path}.softmax",
+                                dtype=cfg.torch_dtype)
 
     def forward(self, hidden, attention_mask, positions, use_cache=False,
                 cache: Optional[QuantizedKVCache] = None, prompt_len=None):
@@ -181,9 +199,15 @@ class LlamaAttention(nn.Module, QuantMixin):
             k = r[..., group * D:(group + 1) * D]
             v = r[..., (group + 1) * D:]
         else:
-            q = self.q_proj(hidden).reshape(B, S, H, D)
-            k = self.k_proj(hidden).reshape(B, S, KV, D)
-            v = self.v_proj(hidden).reshape(B, S, KV, D)
+            # one rounding of the shared input feeds all three projections
+            # when their specs agree
+            shared = self._shared_input_quant(
+                hidden, ("q_proj", "k_proj", "v_proj"), "qkv_pre_process")
+            skip = shared is not None
+            x = shared if skip else hidden
+            q = self.q_proj(x, skip).reshape(B, S, H, D)
+            k = self.k_proj(x, skip).reshape(B, S, KV, D)
+            v = self.v_proj(x, skip).reshape(B, S, KV, D)
 
         cos, sin = rope_cos_sin(positions, D, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -228,14 +252,12 @@ class LlamaAttention(nn.Module, QuantMixin):
         # (positions >= prompt_len) from every real query row, and pad rows'
         # outputs are never consumed.
         if self._flash_eligible(attention_mask, use_cache, S, D):
-            ctx = flash_attention(
-                q.transpose(1, 2).contiguous(),
-                k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous()).transpose(1, 2)
+            ctx, o_prequantized = self._flash_path(q, k, v)
         else:
             ctx = self._naive_path(q, k, v, attention_mask, B, S)
+            o_prequantized = False
         ctx = ctx.reshape(B, S, H * D)
-        return self.o_proj(ctx), new_cache
+        return self.o_proj(ctx, o_prequantized), new_cache
 
     def _attention_sites_clear(self) -> bool:
         """No quantization on the attention matmuls / scaling / softmax."""
@@ -261,18 +283,73 @@ class LlamaAttention(nn.Module, QuantMixin):
             return False
         return self._attention_sites_clear()
 
+    def _matmul_site(self, index, error=False):
+        """:func:`_direct_dtype` of an attention-matmul input's activation
+        (or error) spec."""
+        cfg_q = self.qconfig
+        if cfg_q is None:
+            return None
+        lookup = cfg_q.error_spec if error else cfg_q.activation_spec
+        return _direct_dtype(lookup(self.path, "matmul", OpCategory.GEMM,
+                                    index))
+
     def _flash_eligible(self, attention_mask, use_cache, S, D) -> bool:
-        """The flash gate: config flag on, no cache or a prefill, no mask,
-        D % 128 == 0 and S % 128 == 0 (the reference's tiling gate, kept so
-        both packages take the same branch; the kernel itself takes any S
-        and D 64 or 128), and no quantization on the attention sites."""
+        """The flash gate (reference: models/llama.py:389-427): config flag
+        on, no cache or a prefill, no mask, D % 128 == 0 and S % 128 == 0
+        (the reference's tiling gate, kept so both packages take the same
+        branch; the kernel itself takes any S and D 64 or 128), every
+        attention-matmul site off or a direct rounding, no scaling, softmax
+        or posit-softmax site, and error specs, if any, one direct rounding
+        on both matmul inputs."""
         if not self.config.use_flash_attention or (use_cache and S == 1):
             return False
         if attention_mask is not None:
             return False
         if D % 128 != 0 or S % 128 != 0:
             return False
-        return self._attention_sites_clear()
+        cfg_q = self.qconfig
+        if cfg_q is None:
+            return True
+        # input 0 is q and p, input 1 is k and v
+        if self._matmul_site(0) is False or self._matmul_site(1) is False:
+            return False
+        if cfg_q.posit_exp or cfg_q.posit_exp_shifted or cfg_q.posit_reciprocal:
+            return False
+        if cfg_q.activation_spec(self.path, "mul", OpCategory.SCALING,
+                                 0) is not None:
+            return False
+        if cfg_q.activation_spec(self.path, "softmax", OpCategory.ACTIVATION,
+                                 0) is not None:
+            return False
+        e0, e1 = self._matmul_site(0, True), self._matmul_site(1, True)
+        if e0 is False or e1 is False:
+            return False
+        return (e0 is None and e1 is None) or e0 == e1
+
+    def _flash_path(self, q, k, v):
+        """Quantization-fused flash attention (q/k/v in (B, S, H, D)).
+
+        Returns (context, o_prequantized): when the o_proj input site is a
+        direct rounding, the kernel rounds its own output and o_proj skips
+        its forward input rounding (reference: models/llama.py:444-479)."""
+        qd, kd = self._matmul_site(0), self._matmul_site(1)
+        ed = self._matmul_site(0, True) or self._matmul_site(1, True)
+        od = None
+        if self.qconfig is not None:
+            od = _direct_dtype(self.qconfig.activation_spec(
+                f"{self.path}.o_proj", "linear", OpCategory.GEMM, 0)) or None
+        out = flash_attention(
+            q.transpose(1, 2).contiguous(),
+            k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(),
+            q_qfn=quantize_fn(qd) if qd else None,
+            k_qfn=quantize_fn(kd) if kd else None,
+            # probabilities lie in [0, 1]: the reference's unit quantizer
+            p_qfn=quantize_fn_unit(qd) if qd else None,
+            v_qfn=quantize_fn(kd) if kd else None,
+            out_qfn=quantize_fn(od) if od else None,
+            err_qfn=quantize_fn(ed) if ed else None)
+        return out.transpose(1, 2), od is not None
 
     def _naive_path(self, q, k, v, attention_mask, B, S):
         dtype = self.config.torch_dtype
@@ -294,8 +371,7 @@ class LlamaAttention(nn.Module, QuantMixin):
         scores = self.quant_mul(scores.to(dtype),
                                 scale.to(dtype).to(q.device)).to(f32)
         scores = scores + attention_mask.to(f32)
-        probs = self.quant_activation_input(scores.to(dtype), "softmax")
-        probs = torch.softmax(probs.to(f32), dim=-1).to(dtype)
+        probs = self.softmax(scores.to(dtype))
         pp = self.quant_input(probs, "matmul", OpCategory.GEMM, 0,
                               hook="av_pre_process")
         return torch.einsum("bhst,bthd->bshd", pp.to(f32),
@@ -315,8 +391,12 @@ class LlamaMLP(nn.Module, QuantMixin):
         self.down_proj = dense(I, Hd, "down_proj")
 
     def forward(self, x):
-        gate = self.gate_proj(x)
-        up = self.up_proj(x)
+        shared = self._shared_input_quant(x, ("gate_proj", "up_proj"),
+                                          "gateup_pre_process")
+        skip = shared is not None
+        x = shared if skip else x
+        gate = self.gate_proj(x, skip)
+        up = self.up_proj(x, skip)
         gate = self.quant_activation_input(gate, "silu")
         act = F.silu(gate.to(torch.float32)).to(self.config.torch_dtype)
         return self.down_proj(self.quant_mul(act, up))
@@ -400,7 +480,11 @@ class LlamaForCausalLM(nn.Module, QuantMixin):
 
     ``forward(input_ids, ...) -> (logits f32, caches)``; ``caches`` is None
     unless ``use_cache``.  Runs on ``device``, CUDA by default (raises when
-    CUDA is missing; tests pass ``device="cpu"``).
+    CUDA is missing; tests pass ``device="cpu"``).  A CUDA forward through
+    dense (unpacked) layers needs
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+    False``, so that cuBLAS sums in f32 as the reference does; it raises
+    otherwise (``QDense``).
     """
 
     def __init__(self, config: LlamaConfig,

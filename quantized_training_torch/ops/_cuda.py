@@ -3,13 +3,16 @@
 Each ``csrc/<name>.cu`` compiles with nvcc into a shared library of its own
 with a plain C interface (no PyTorch headers, so a build takes seconds), and
 is loaded with ctypes.  Libraries are built at first use into ``_build/``
-beside the package (listed in .gitignore), named by a hash of the source and
-flags so that an edited kernel is rebuilt.  ``build()`` compiles several
-sources at once, one nvcc process each.
+beside the package (listed in .gitignore), named by a hash of the source,
+every shared header ``csrc/*.cuh`` and the flags, so that an edited kernel
+or header is rebuilt.  ``build()`` compiles several sources at once, one
+nvcc process each.  :class:`QtFormat` is the rounding descriptor that the
+kernels of ``csrc/qt_round.cuh`` take by value.
 """
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -19,13 +22,14 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "check",
-           "stream_ptr"]
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "QtFormat", "build", "load",
+           "check", "qt_format", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("affine_w4_matmul", "flash_attn_fwd", "int_kv_decode")
+KERNEL_SOURCES = ("affine_w4_matmul", "flash_attn_fwd", "int_kv_decode",
+                  "quantize_elemwise", "quantized_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,9 +51,11 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
@@ -102,6 +108,41 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.qt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+class QtFormat(ctypes.Structure):
+    """``struct QtFormat`` of ``csrc/qt_round.cuh``."""
+    _fields_ = [("kind", ctypes.c_int), ("a", ctypes.c_int),
+                ("b", ctypes.c_int), ("flags", ctypes.c_int),
+                ("hi", ctypes.c_float), ("lo", ctypes.c_float),
+                ("zero", ctypes.c_float)]
+
+
+def qt_format(fmt) -> QtFormat:
+    """The kernels' descriptor of a :class:`numerics.RoundFormat`; ``None``
+    is no rounding."""
+    if fmt is None:
+        return QtFormat(0, 0, 0, 0, 0.0, 0.0, 0.0)
+    if fmt.kind == "posit":
+        nbits, es = fmt.a, fmt.b
+        max_scale = (nbits - 2) << es
+        zero = 2.0 ** math.floor(-(nbits - 1) * (1 << es) + 2 ** (es - 1))
+        return QtFormat(1, nbits, es, 0, 2.0 ** max_scale, 2.0 ** -max_scale,
+                        zero)
+    if fmt.kind == "fp8":
+        mbits = fmt.b
+        return QtFormat(2, math.floor(math.log2(fmt.min_norm)), mbits, 0,
+                        fmt.max_norm, fmt.min_norm,
+                        fmt.min_norm * 2.0 ** -(mbits + 1))
+    if fmt.kind == "fp":
+        return QtFormat(3, fmt.a, fmt.b, int(fmt.unsigned), fmt.max_norm,
+                        0.0, 0.0)
+    if fmt.kind == "int":
+        lo, hi = ((0, 2 ** fmt.a - 1) if fmt.unsigned
+                  else (-(2 ** (fmt.a - 1)), 2 ** (fmt.a - 1) - 1))
+        return QtFormat(4, fmt.a, 0, int(fmt.unsigned), float(hi), float(lo),
+                        0.0)
+    raise ValueError(f"no kernel rounding for {fmt}")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,9 +1,13 @@
 from .config import (FUSION_LADDER, OpCategory, QConfig, QuantConfig,
                      parse_op_categories)
-from .fake_quant import fake_quantize
-from .ops import expand_scale
+from .fake_quant import FakeQuantState, fake_quantize, init_state
+from .fold import fold_quantized_weights, strip_weight_specs
+from .ops import calculate_mx_qparam, expand_scale
+from .presets import QUANTIZATION_CONFIGS, build_preset
 from .storage import build_storage
 
 __all__ = ["FUSION_LADDER", "OpCategory", "QConfig", "QuantConfig",
-           "parse_op_categories", "fake_quantize", "expand_scale",
-           "build_storage"]
+           "QUANTIZATION_CONFIGS", "FakeQuantState", "build_preset",
+           "build_storage", "calculate_mx_qparam", "expand_scale",
+           "fake_quantize", "fold_quantized_weights", "init_state",
+           "parse_op_categories", "strip_weight_specs"]
