@@ -17,12 +17,24 @@ Phases, each of which exits non-zero on failure:
      backward kernels are checked from shared inputs (one q, k, v, dO and
      the plain lse, o_unq and di for both sides) at three shapes; the packed
      8-bit Adam step must be bit-equal at the train step's three leaf
-     shapes;
+     shapes; the plane-major dequant stream bit for bit at the two shapes
+     it served on the TPU, the KIVI decode (per cache form, an atol and a
+     cap on the share of outputs outside a tight bound) and the storage
+     GEMMs with planted faults (a zero-point term dropped, a split or K
+     group reading its neighbour's scales, a split losing its values, one
+     wrong posit table entry, one block's scales or one K group wrong);
   3. time each kernel, its plain version and one PyTorch library call that
      computes the same function (a yardstick only: the port never calls
      it), beside the least time the card could take (``bound_ms``);
   4. a 2-layer LLaMA-2 7B-width model: the kernel path's logits against the
-     plain path's (the same model on the CPU);
+     plain path's (the same model on the CPU); then (4b) the same for each
+     storage format and cache of benchmarks/llama7b_serving.py and
+     tests/test_storage_deploy.py (w4a16 + packed uint2 KIVI, w4a16 + int8,
+     w8a8 + int4, w2a16 + uint2 KIVI at 13B width, w2x4, posit8, mx8),
+     decoding from shared quantized state, each with its worst error,
+     greedy tokens and digests of both sides (w8a8 also with every GEMM of
+     the model fed the CPU's input, bit for bit); decode ms/step and peak
+     memory of each at 8 slots (the ``formats {...}`` line);
   5. the posit8 fusion ladder of bench.py: a 2-layer model at its width,
      kernel path against plain path at residual_fusion (each side also run
      again on the same input, with a digest of its logits); then the full
@@ -30,9 +42,11 @@ Phases, each of which exits non-zero on failure:
      forward tokens/s at every FUSION_LADDER rung and in bf16, peak memory,
      and the launch counters read around one residual_fusion forward;
   6. serve at full LLaMA-2 7B width (random seeded weights, w4a16 group 64,
-     int4 cache P=2048 R=128, fused qkv, 8 slots): ~16 greedy requests
-     through ContinuousBatchingEngine, with every kernel's launch counter
-     read around that run;
+     P=2048 R=128, fused qkv, 8 slots): 16 greedy requests through
+     ContinuousBatchingEngine, with every kernel's launch counter read
+     around that run and around one decode step, once with slice 1's int4
+     cache (``serving {...}``) and once with the flagship's packed uint2
+     KIVI cache (``serving_kivi {...}``);
   7. the posit8 QAT train step of benchmarks/train_bench.py: a 2-layer
      model at its width, the kernel path's loss and gradients against the
      plain path's (each side run twice, with digests), and one Adam8bit
@@ -50,6 +64,7 @@ The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import hashlib
 import json
 import math
@@ -104,6 +119,15 @@ class Timer:
         torch.cuda.synchronize()
         times = sorted(s.elapsed_time(e) for s, e in pairs)
         return times[len(times) // 2]
+
+
+def fresh_peak(torch):
+    """Free what earlier phases left (reference cycles included) and start
+    the peak-memory count anew."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def check_close(name, got, want, atol, rtol):
@@ -850,15 +874,454 @@ def training_kernel_phases(torch, timer):
     return rows
 
 
+KIVI_SPEC = "uint{bits},qs=group_wise_affine,bs=32,ax={ax}"
+
+
+def kivi_config(P, R, bits=2, pack=True):
+    """llama7b_serving.py's KIVI cache (build, :140-145): K grouped along
+    tokens, V along features, block 32."""
+    from quantized_training_torch.serving.kv_cache import KVCacheConfig
+    return KVCacheConfig.kivi(P, R, KIVI_SPEC.format(bits=bits, ax=-2),
+                              KIVI_SPEC.format(bits=bits, ax=-1), pack=pack)
+
+
+def storage_kernel_phases(torch, timer):
+    """Slice 4's kernels: the fused KIVI decode (kernel 8), the int8 form of
+    the int-sym decode (kernel 7), the MX8 and posit8 storage GEMMs
+    (kernels 9 and 10), the w4 GEMM at nbits=2 and in the w2x4 layout
+    (kernel 5) and the plane-major dequant stream (kernel 6), each against
+    its plain version from shared inputs; kernel 6 bit for bit."""
+    from quantized_training_torch.ops import affine_storage as aff
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    from quantized_training_torch.ops import kivi_attention as ka
+    from quantized_training_torch.ops import mx_storage as mx
+    from quantized_training_torch.ops import posit_storage as ps
+    from quantized_training_torch.serving import kv_cache as kvc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+    bf16 = torch.bfloat16
+    rows = {}
+    failures = []
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def check(name, got, want, atol, rtol):
+        torch.cuda.synchronize()
+        ok, err = check_close(name, got, want, atol, rtol)
+        if not ok:
+            failures.append(name)
+        return err
+
+    # ---- fused KIVI decode (kernel 8) --------------------------------------
+    # The kernel rounds p to bf16 against each split's own max, the plain
+    # version (the TPU kernel's rounding points) against the global max, so
+    # the f32 sums before the one bf16 rounding of the V zero-point term
+    # o2 = sum_t p_t bf16((mid - vz[t]) vs[t]) differ in their last bits;
+    # where o2 lies near a rounding boundary the sides round it one bf16
+    # step apart, over a whole 32-feature group.  That step is the error
+    # floor and scales with |o2 / l|, the weighted mean of (mid - vz) vs:
+    # about 2 for bytes (mid 0, so -vz vs is the group's minimum), under 1
+    # for packed uint2, about 0.2 for packed uint4.  So each form has its
+    # own atol, and a second bound: the share of outputs outside the tight
+    # 1e-3 + 0.02*|plain|, which rounding flips of whole groups keep small
+    # and an indexing fault raises in every slot it touches.  Readings on
+    # the H100 (PR 4; atol needed at rtol 0.02, then the share; mean |plain|
+    # is 0.03-0.14): D=128 uint2 packed 5.08e-3 / 0.0167, uint4 packed
+    # 1.73e-3 / 0.00034, uint2 bytes 1.54e-2 / 0.0209; D=64 at most 1.34e-3
+    # / 0.00195.  Planted faults, at full length, where they move outputs
+    # least: each zero-point term dropped, split 0 reading the next token's
+    # V scale, split 0 losing its values, K group 0 reading group 1's scale
+    # (the last read 1.22e-2 / 0.31 packed and 3.03e-2 / 0.55 as bytes).
+    rtol, tight = 2e-2, 1e-3
+    kivi_tol = {(128, 2, True): (8e-3, 0.05), (128, 4, True): (3e-3, 0.01),
+                (128, 2, False): (2e-2, 0.05), (64, 2, True): (3e-3, 0.01),
+                (64, 4, True): (3e-3, 0.01), (64, 2, False): (3e-3, 0.01)}
+    forms = ", ".join(f"D={d} uint{b} pack={p}: atol {a}, share {c}"
+                      for (d, b, p), (a, c) in kivi_tol.items())
+    log(f"phase 2/3: kivi_decode (tolerance atol + {rtol}*|plain| and a cap "
+        f"on the share outside {tight} + {rtol}*|plain|, per form: {forms})")
+
+    def kivi_reading(name, got, want, form):
+        """Both bounds of one form; prints mean |plain| and the share."""
+        atol, cap = kivi_tol[form]
+        torch.cuda.synchronize()
+        ok, err = check_close(name, got, want, atol, rtol)
+        g, w = got.float(), want.float()
+        share = float(((g - w).abs() > tight + rtol * w.abs()).float().mean())
+        log(f"    mean |plain| {float(w.abs().mean()):.4g}, share outside "
+            f"the tight bound {share:.5f} (at most {cap}) "
+            f"{'ok' if share <= cap else 'BREACH'}")
+        return ok and share <= cap, err
+
+    def split0_tokens(P, bits):
+        """The main-tier tokens of the kernel's first split: 32 word rows,
+        i.e. tokens s * P*bits/32 + [0, 32) of every plane s when packed,
+        tokens [0, 256) for bytes (csrc/kivi_decode.cu, Tier)."""
+        if bits is None:
+            return torch.arange(256, device=dev)
+        rows = P * bits // 32
+        return (torch.arange(32 // bits, device=dev)[:, None] * rows
+                + torch.arange(32, device=dev)[None, :]).reshape(-1)
+
+    max_err = 0.0
+    timed = None
+    for B, H, KV, D, P, R, bits, pack in [
+            (8, 32, 32, 128, 2048, 128, 2, True),
+            (8, 32, 32, 128, 2048, 128, 4, True),
+            (8, 32, 32, 128, 2048, 128, 2, False),
+            (2, 4, 2, 64, 32, 8, 2, True), (2, 4, 2, 64, 64, 8, 4, True),
+            (2, 4, 2, 64, 32, 8, 2, False)]:
+        form = (D, bits, pack)
+        cfg = kivi_config(P, R, bits, pack)
+        cache = kvc.prefill_cache(
+            kvc.init_cache(cfg, B, KV, D, device=dev), cfg,
+            randn(B, P, KV, D, dtype=bf16), randn(B, P, KV, D, dtype=bf16))
+        k_res = randn(B, KV, R, D, dtype=bf16)
+        v_res = randn(B, KV, R, D, dtype=bf16)
+        q = randn(B, H, D, dtype=bf16)
+        bk = cfg._pack_bits(cfg.k_spec)
+        kw = dict(bits_k=bk, bits_v=bk)
+        mains = [torch.randint(1, P + 1, (B,), device=dev, generator=gen,
+                               dtype=torch.int32),
+                 torch.full((B,), P, dtype=torch.int32, device=dev)]
+        if P == 2048:
+            # a slot just filled, short and long prompts, the edges
+            mains.insert(1, torch.tensor(
+                [2048, 1500, 700, 64, 1, 2047, 1024, 333], dtype=torch.int32,
+                device=dev))
+        for ml in mains:
+            for rl_val in (1, R):
+                rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
+                args = (q, *cache[:6], k_res, v_res, ml, rl)
+                ok, err = kivi_reading(
+                    f"B={B} H={H} KV={KV} D={D} P={P} R={R} uint{bits} "
+                    f"pack={pack} main_len={ml.tolist()} res_len={rl_val}",
+                    ka.kivi_decode_attention(*args, **kw),
+                    ka.kivi_decode_plain(*args, scale=D ** -0.5, **kw), form)
+                if not ok:
+                    failures.append(f"kivi_decode {form}")
+                max_err = max(max_err, err)
+        if (bits, pack, D) == (2, True, 128):
+            timed = (cfg, cache, k_res, v_res, q, kw)
+        if D == 128 and bits == 2:
+            # planted faults, from the plain version on altered qparams: a
+            # zero-point term dropped (zero points equal to mid), or an
+            # index off by one token, split or group
+            ml = mains[-1]
+            rl = torch.full((B,), 1, dtype=torch.int32, device=dev)
+            got = ka.kivi_decode_attention(q, *cache[:6], k_res, v_res, ml,
+                                           rl, **kw)
+            mid = (1 << (bits - 1)) if bk else 0
+            tok = split0_tokens(P, bk)
+            faults = []
+            for side, idx in (("K", 2), ("V", 5)):
+                parts = list(cache[:6])
+                parts[idx] = torch.full_like(parts[idx], mid)
+                faults.append((f"the {side} zero-point term dropped", parts))
+            parts = list(cache[:6])
+            parts[4] = parts[4].clone()
+            parts[4][:, :, tok] = cache.v_scale[:, :, tok + 1]
+            faults.append(("split 0 reads the next token's V scale", parts))
+            parts = list(cache[:6])
+            parts[4] = parts[4].clone()
+            parts[4][:, :, tok] = 0
+            faults.append(("split 0 loses its values", parts))
+            parts = list(cache[:6])
+            parts[1] = parts[1].clone()
+            parts[1][:, :, 0] = cache.k_scale[:, :, 1]
+            faults.append(("K group 0 reads group 1's scale", parts))
+            for what, parts in faults:
+                ok, _ = kivi_reading(
+                    f"planted fault, uint{bits} pack={pack} main_len="
+                    f"{ml.tolist()} res_len=1, {what}", got,
+                    ka.kivi_decode_plain(q, *parts, k_res, v_res, ml, rl,
+                                         scale=D ** -0.5, **kw), form)
+                if ok:
+                    failures.append("kivi_decode tolerance misses the "
+                                    f"planted fault: {what} ({form})")
+        del cache
+    cfg, cache, k_res, v_res, q, kw = timed
+    B, KV, D = q.shape[0], cache.k_codes.shape[1], q.shape[2]
+    H, P, R = q.shape[1], cfg.max_prefill, cfg.max_decode
+    ml = torch.full((B,), P, dtype=torch.int32, device=dev)
+    rl = torch.full((B,), R, dtype=torch.int32, device=dev)
+    args = (q, *cache[:6], k_res, v_res, ml, rl)
+    ms = timer(lambda: ka.kivi_decode_attention(*args, **kw))
+    plain = timer(lambda: ka.kivi_decode_plain(*args, scale=D ** -0.5, **kw),
+                  reps=5)
+    kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), cfg)
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    mask = torch.ones((B, 1, 1, P + R), dtype=torch.bool, device=dev)
+    lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask))
+    del kd, vd
+    # every word row, qparam and residual row is needed at full lengths
+    nbytes = (sum(t.numel() * t.element_size() for t in cache[:6])
+              + 2 * k_res.numel() * 2 + 2 * q.numel() * 2 + 2 * B * 4)
+    b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
+    log(f"  time B={B} H=KV={KV} D={D} P={P} R={R} uint2 packed, full: "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+        f"(SDPA over the dequantized cache) bound_ms {b:.4f} ({by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    rows["kivi_decode"] = dict(
+        name="kivi_decode", route="cuda",
+        source="quantized_training_torch/csrc/kivi_decode.cu",
+        replaces="quantized_training_tpu/ops/pallas/kivi_attention.py:76",
+        max_abs_err=max_err, shape="decode B=8 H=KV=32 D=128 P=2048 R=128 "
+        "uint2 packed, full", ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=b, bound_by=by)
+    del cache, timed, args
+
+    # ---- int-sym decode with int8 codes (kernel 7) -----------------------
+    # As the int4 form: p*vs rounded against each split's own max.  The
+    # first card call read 2.05e-3 in a slot of one main and one residual
+    # token (each split's p is 1 there); the planted fault needs 1.4e-2.
+    atol, rtol = 4e-3, 2e-2
+    log(f"phase 2/3: int_kv_decode, int8 codes (tolerance {atol} + "
+        f"{rtol}*|plain|)")
+    B, H, KV, D, P, R = 8, 32, 32, 128, 2048, 128
+    kcfg = kvc.KVCacheConfig.int_sym(P, R, 8)
+    cache = kvc.prefill_cache(
+        kvc.init_cache(kcfg, B, KV, D, device=dev), kcfg,
+        randn(B, P, KV, D, dtype=bf16), randn(B, P, KV, D, dtype=bf16))
+    k_res = randn(B, KV, R, D, dtype=bf16)
+    v_res = randn(B, KV, R, D, dtype=bf16)
+    q = randn(B, H, D, dtype=bf16)
+    ml_mix = torch.tensor([2048, 1500, 700, 64, 1, 2047, 1024, 333],
+                          dtype=torch.int32, device=dev)
+    sym = (cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale,
+           k_res, v_res)
+    max_err = 0.0
+    for ml, rl_val in [(ml_mix, 1), (ml_mix, R),
+                       (torch.full((B,), P, dtype=torch.int32, device=dev),
+                        64)]:
+        rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
+        err = check(f"main_len={ml.tolist()} res_len={rl_val}",
+                    ikv.int_kv_decode_attention(q, *sym, ml, rl, bits=8),
+                    ikv.int_kv_decode_plain(q, *sym, ml, rl, bits=8,
+                                            scale=D ** -0.5), atol, rtol)
+        max_err = max(max_err, err)
+    got = ikv.int_kv_decode_attention(q, *sym, ml, rl, bits=8)
+    vs_f = cache.v_scale.clone()
+    vs_f[..., 768:1024] = cache.v_scale[..., 769:1025]
+    planted_fault(f"main_len={P} res_len=64, split 3 reads the next token's "
+                  "v scale", got,
+                  ikv.int_kv_decode_plain(q, cache.k_codes, cache.k_scale,
+                                          cache.v_codes, vs_f, k_res, v_res,
+                                          ml, rl, bits=8, scale=D ** -0.5),
+                  atol, rtol, failures)
+    rl = torch.full((B,), R, dtype=torch.int32, device=dev)
+    ms = timer(lambda: ikv.int_kv_decode_attention(q, *sym, ml, rl, bits=8))
+    plain = timer(lambda: ikv.int_kv_decode_plain(
+        q, *sym, ml, rl, bits=8, scale=D ** -0.5), reps=5)
+    kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), kcfg)
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    mask = torch.ones((B, 1, 1, P + R), dtype=torch.bool, device=dev)
+    lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask))
+    del kd, vd
+    nbytes = (2 * B * KV * P * D + 2 * B * KV * P * 4 + 2 * k_res.numel() * 2
+              + 2 * q.numel() * 2 + 2 * B * 4)
+    b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
+    log(f"  time B={B} main_len={P} res_len={R}: kernel_ms {ms:.4f} plain_ms "
+        f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} ({by})")
+    rows["int_kv_decode_8bit"] = dict(
+        name="int_kv_decode_8bit", route="cuda",
+        source="quantized_training_torch/csrc/int_kv_decode.cu",
+        replaces="quantized_training_tpu/ops/pallas/int_kv_attention.py:77",
+        max_abs_err=max_err, shape="decode B=8 H=KV=32 D=128 P=2048 R=128 "
+        "int8 codes, full", ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=b, bound_by=by)
+    del cache, sym, k_res, v_res
+
+    # ---- storage GEMMs (kernels 9, 10 and 5 at nbits=2) -------------------
+    # The kernel and the plain version multiply the same bf16 weights: f32
+    # sums in another order and one bf16 rounding of the output (2^-8
+    # relative) differ, as for the w4 GEMM above.
+    atol, rtol = 1e-4, 1e-2
+    cases = [(8, 4096, 12288), (8, 4096, 4096), (8, 11008, 4096),
+             (8, 4096, 32000), (1, 4096, 4096), (5, 11008, 4096),
+             (8, 5120, 15360), (8, 13824, 5120), (8, 5120, 32000),
+             (67, 4096, 12288), (512, 4096, 12288), (512, 13824, 5120)]
+    gemms = {
+        "mx_storage_matmul": (
+            "mx_storage.py:50", "csrc/mx_storage_matmul.cu",
+            lambda w: mx.pack_mx_weights(w, block_size=64),
+            lambda x, p: mx.mx_matmul(x, *p, block_size=64),
+            lambda x, p: mx.mx_matmul_plain(x, *p, block_size=64),
+            lambda p: mx.mx_dequant(p[0], p[1], 64),
+            lambda K, N: K * N + (K // 64) * N * 2),
+        "posit_storage_matmul": (
+            "posit_storage.py:39", "csrc/posit_storage_matmul.cu",
+            lambda w: (ps.pack_posit_weights(w.to(bf16)),),
+            lambda x, p: ps.posit_matmul(x, *p),
+            lambda x, p: ps.posit_matmul_plain(x, *p),
+            lambda p: ps.decode_posit(p[0], 8, 1).to(bf16),
+            lambda K, N: K * N),
+        "affine_w2_matmul": (
+            "affine_storage.py:255", "csrc/affine_w4_matmul.cu",
+            lambda w: aff.pack_affine_weights(w, 2, 64),
+            lambda x, p: aff.affine_matmul(x, *p, nbits=2, group_size=64),
+            lambda x, p: aff.affine_matmul_plain(x, *p, nbits=2,
+                                                 group_size=64),
+            lambda p: aff._dequant_planes(*p, 2, 64).to(bf16),
+            lambda K, N: K * N // 4 + 2 * (K // 64) * N * 4),
+    }
+    for name, (tpu, src, pack, run, plain_fn, dequant,
+               wbytes) in gemms.items():
+        log(f"phase 2/3: {name} (tolerance {atol} + {rtol}*|plain|)")
+        max_err = 0.0
+        packs = {}
+        for M, K, N in cases:
+            if (K, N) not in packs:
+                packs[(K, N)] = pack(randn(K, N, scale=K ** -0.5))
+            p = packs[(K, N)]
+            x = randn(M, K, dtype=bf16)
+            got = run(x, p)
+            max_err = max(max_err, check(f"M={M} K={K} N={N}", got,
+                                         plain_fn(x, p), atol, rtol))
+            if (M, K, N) != (8, 11008, 4096):
+                continue
+            if name == "posit_storage_matmul":
+                # one wrong table entry: the most frequent code decodes as
+                # its neighbour
+                c0 = int(torch.mode(p[0].flatten().cpu()).values)
+                codes_f = torch.where(p[0] == c0, c0 + 1, p[0]).to(p[0].dtype)
+                planted_fault(f"code {c0} decoded as code {c0 + 1}", got,
+                              plain_fn(x, (codes_f,)), atol, rtol, failures)
+            elif name == "mx_storage_matmul":
+                scales_f = p[1].clone()
+                scales_f[100] = p[1][101]
+                planted_fault("K block 100 reads block 101's scales", got,
+                              plain_fn(x, (p[0], scales_f)), atol, rtol,
+                              failures)
+            else:
+                x_f = x.clone()
+                x_f[:, 64 * 100:64 * 101] = 0          # K group 100 skipped
+                planted_fault("K group 100 skipped", got, plain_fn(x_f, p),
+                              atol, rtol, failures)
+        if name == "affine_w2_matmul":
+            # w2x4: the same w2 values in the w4 word layout, zp + 6,
+            # through the nbits=4 form
+            for M, K, N in [(8, 13824, 5120), (512, 5120, 15360)]:
+                codes2, sf, zp = packs.get((K, N)) or pack(
+                    randn(K, N, scale=K ** -0.5))
+                c4 = aff.expand_w2_words_to_w4(codes2)
+                x = randn(M, K, dtype=bf16)
+                max_err = max(max_err, check(
+                    f"w2x4 M={M} K={K} N={N}",
+                    aff.affine_matmul(x, c4, sf, zp + 6, nbits=4,
+                                      group_size=64),
+                    aff.affine_matmul_plain(x, c4, sf, zp + 6, nbits=4,
+                                            group_size=64), atol, rtol))
+
+        def row(M, K, N):
+            p = packs.get((K, N)) or pack(randn(K, N, scale=K ** -0.5))
+            x = randn(M, K, dtype=bf16)
+            w = dequant(p)
+            ms = timer(lambda: run(x, p))
+            plain = timer(lambda: plain_fn(x, p), reps=5)
+            lib = timer(lambda: torch.matmul(x, w))
+            b, by = bound_ms(wbytes(K, N) + M * K * 2 + M * N * 2,
+                             2 * M * K * N)
+            log(f"  time M={M} K={K} N={N}: kernel_ms {ms:.4f} plain_ms "
+                f"{plain:.4f} library_ms {lib:.4f} (bf16 matmul on the "
+                f"dequantized weight) bound_ms {b:.4f} ({by})")
+            return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                        bound_by=by)
+
+        main = (8, 5120, 15360) if name == "affine_w2_matmul" \
+            else (8, 4096, 12288)
+        for M, K, N in [(2048, 4096, 12288), (8, 13824, 5120),
+                        (2048, 13824, 5120)]:
+            row(M, K, N)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source=f"quantized_training_torch/{src}",
+            replaces=f"quantized_training_tpu/ops/pallas/{tpu}",
+            max_abs_err=max_err,
+            shape="decode qkv M={} K={} N={}".format(*main), **row(*main))
+        packs.clear()
+
+    # ---- w8a8: torch._int_mm (no kernel of the port), held exactly --------
+    from quantized_training_torch.ops import int8_matmul as i8
+    log("phase 2/3: w8a8_matmul through torch._int_mm (equal to the exact "
+        "CPU product)")
+    for M, K, N in [(8, 4096, 12288), (67, 11008, 4096), (512, 4096, 32000)]:
+        codes, scale = i8.pack_int8_weights(randn(K, N, scale=K ** -0.5))
+        x = randn(M, K, dtype=bf16)
+        got = i8.w8a8_matmul(x, codes, scale, out_dtype=torch.float32).cpu()
+        want = i8.w8a8_matmul(x.cpu(), codes.cpu(), scale.cpu(),
+                              out_dtype=torch.float32)
+        n_bad = int((got != want).sum())
+        log(f"  M={M} K={K} N={N}: {n_bad} outputs differ")
+        if n_bad:
+            failures.append(f"w8a8_matmul M={M} K={K} N={N}")
+
+    # ---- plane-major dequant stream (kernel 6): bit for bit ----------------
+    log("phase 2/3: affine_dequant (bit-equal to the plain version)")
+    for nbits, K, N in [(4, 11008, 4096), (2, 13824, 5120), (4, 4096, 4096)]:
+        p = aff.pack_affine_weights(randn(K, N, scale=K ** -0.5), nbits, 64)
+        got = aff.dequant_planes(*p, nbits, 64)
+        want = aff.dequant_planes_plain(*p, nbits, 64)
+        torch.cuda.synchronize()
+        n_bad, where = bit_mismatches(got, want)
+        log(f"  nbits={nbits} K={K} N={N}: lanes that differ {n_bad} {where}")
+        if n_bad:
+            failures.append(f"affine_dequant nbits={nbits} K={K} N={N}")
+        if nbits == 4 and K == 11008:
+            faulted = want.clone()
+            faulted[5, 7] = -faulted[5, 7] if faulted[5, 7] != 0 else 1.0
+            if bit_mismatches(got, faulted)[0] == 0:
+                failures.append("affine_dequant check misses a changed lane")
+            per = 32 // nbits
+            x = randn(8, K, dtype=bf16)
+            x_pm = aff._plane_major_x(x, K // per, per)
+            check("x_pm @ w_pm against the plain product",
+                  torch.matmul(x_pm, got),
+                  aff.affine_matmul_plain(x, *p, nbits=nbits, group_size=64),
+                  1e-4, 1e-2)
+        if K != 4096:
+            ms = timer(lambda: aff.dequant_planes(*p, nbits, 64))
+            plain = timer(lambda: aff.dequant_planes_plain(*p, nbits, 64),
+                          reps=5)
+            nbytes = K * N * nbits // 8 + 2 * (K // 64) * N * 4 + K * N * 2
+            b, by = bound_ms(nbytes, 0)
+            log(f"  time nbits={nbits} K={K} N={N}: kernel_ms {ms:.4f} "
+                f"plain_ms {plain:.4f} library_ms null (no PyTorch call "
+                f"unpacks these words) bound_ms {b:.4f} ({by})")
+            if nbits == 4:
+                rows["affine_dequant"] = dict(
+                    name="affine_dequant", route="cuda",
+                    source="quantized_training_torch/csrc/affine_dequant.cu",
+                    replaces="quantized_training_tpu/ops/pallas/"
+                             "affine_storage.py:185",
+                    max_abs_err=0.0, shape=f"w4 K={K} N={N} (the TPU's "
+                    "down_proj fallback)", ms=ms, plain_ms=plain,
+                    library_ms=None, bound_ms=b, bound_by=by)
+    if failures:
+        fail("kernel disagrees with its plain version: " + ", ".join(failures))
+    return rows
+
+
 # ------------------------------------------------------------------ models
-def serving_config(qt, layers):
+def serving_config(qt, layers, fmt="w4a16", cache="int4", geom="7b"):
+    """benchmarks/llama7b_serving.py's build (:131-154): LLaMA-2 7B or 13B
+    geometry, storage ``fmt`` at group 64, fused qkv, flash prefill, fused
+    decode, P=2048 R=128; ``cache`` int4 or int8 (int-sym) or kivi2 (packed
+    uint2 KIVI)."""
     from dataclasses import replace
     P, R = 2048, 128
-    cfg = replace(qt.LlamaConfig.llama2_7b(), num_hidden_layers=layers,
-                  kv_cache=qt.KVCacheConfig.int_sym(P, R, 4),
+    kcfg = (kivi_config(P, R) if cache == "kivi2" else
+            qt.KVCacheConfig.int_sym(P, R, 8 if cache == "int8" else 4))
+    base = (qt.LlamaConfig.llama2_7b() if geom == "7b"
+            else qt.LlamaConfig.llama2_13b())
+    cfg = replace(base, num_hidden_layers=layers, kv_cache=kcfg,
                   fused_qkv=True, use_flash_attention=True,
                   use_fused_kivi=True, max_position_embeddings=P + R)
-    return cfg, qt.QuantConfig().with_storage("w4a16", 64)
+    return cfg, qt.QuantConfig().with_storage(fmt, 64)
 
 
 def parity_phase(torch, qt):
@@ -904,6 +1367,203 @@ def parity_phase(torch, qt):
     del gpu, cpu
     if not ok:
         fail("kernel path disagrees with the plain path")
+
+
+# (label, storage format, cache, geometry, kernels of its decode step):
+# the arms of benchmarks/llama7b_serving.py (w4 :474-476, w4kv8 :499-505,
+# w8a8 :537-554, 13b :556-561, 13bx :569-575) and the two formats of
+# tests/test_storage_deploy.py it does not serve, posit8 and mx8.  The 13bx
+# arm's w2x4 runs here at 7B width; posit8 and mx8 take slice 1's int4
+# cache.  w8a8's GEMMs are torch._int_mm (cuBLAS), as the JAX package's
+# are an XLA dot.
+FORMAT_CASES = (
+    ("w4a16_kivi2", "w4a16", "kivi2", "7b",
+     ("affine_w4_matmul", "kivi_decode")),
+    ("w4a16_kv8", "w4a16", "int8", "7b", ("affine_w4_matmul", "int_kv_decode")),
+    ("w8a8_kv4", "w8a8", "int4", "7b", ("int_kv_decode",)),
+    ("w2a16_kivi2_13b", "w2a16", "kivi2", "13b",
+     ("affine_w4_matmul", "kivi_decode")),
+    ("w2x4_kv4", "w2x4", "int4", "7b", ("affine_w4_matmul", "int_kv_decode")),
+    ("posit8_kv4", "posit8", "int4", "7b",
+     ("posit_storage_matmul", "int_kv_decode")),
+    ("mx8_kv4", "mx8", "int4", "7b", ("mx_storage_matmul", "int_kv_decode")),
+)
+
+
+def gemm_calls(torch, model, feed=None):
+    """Hooks on every storage QDense of ``model`` that record each call as
+    (module name, input, output) on the CPU.  With ``feed`` (such a record
+    from the other side), each call's input is first replaced by the input
+    of the same call there, so both sides' GEMMs see identical bits."""
+    from quantized_training_torch.models.layers import QDense
+    calls, handles = [], []
+
+    def pre(mod, args):
+        if feed is not None and len(calls) < len(feed):
+            return (feed[len(calls)][1].to(args[0].device),) + args[1:]
+        return None
+
+    def post(name):
+        def hook(mod, args, out):
+            calls.append((name, args[0].detach().cpu(), out.detach().cpu()))
+        return hook
+
+    for name, m in model.named_modules():
+        if isinstance(m, QDense) and m.storage:
+            handles += [m.register_forward_pre_hook(pre),
+                        m.register_forward_hook(post(name))]
+    return calls, handles
+
+
+def shared_gemm_check(torch, gpu, cpu, ids, S):
+    """w8a8 from shared GEMM inputs: in a prefill and one decode step, every
+    storage QDense of the card's model is fed the input its CPU counterpart
+    got, in the same order, and its output must be bit-equal to the CPU's
+    (the int8 dot is exact; quantize and rescale are the same correctly
+    rounded f32 operations on both).  This holds every layer's weights,
+    scales and call order on the card, which the end-to-end logits cannot:
+    the dynamic quantizer there turns last-bit differences upstream into
+    code steps.  Planted fault: one layer's weight scales shifted by one
+    channel must change that layer's outputs."""
+    def run(model, dev, tok, feed=None):
+        calls, handles = gemm_calls(torch, model, feed)
+        _, caches = model(ids.to(dev), use_cache=True, prompt_len=S)
+        model(tok.to(dev), use_cache=True, caches=caches, cache_index=S)
+        for h in handles:
+            h.remove()
+        return calls
+
+    tok = torch.tensor([[1]])
+    with torch.no_grad():
+        ref = run(cpu, "cpu", tok)
+        got = run(gpu, "cuda", tok, ref)
+        names = [c[0] for c in ref]
+        order_ok = names == [c[0] for c in got]
+        differ = sum(int((g[2].view(torch.int16) != r[2].view(torch.int16))
+                         .sum()) for g, r in zip(got, ref))
+        log(f"  shared GEMM inputs: {len(got)} calls on the card, {len(ref)} "
+            f"on the CPU, same order {order_ok}; outputs differ in {differ} "
+            f"lanes (must be 0)")
+        victim = names[len(names) // 2]
+        mod = gpu.get_submodule(victim)
+        keep = mod.scales.clone()
+        mod.scales.copy_(keep.roll(1))
+        bad = run(gpu, "cuda", tok, ref)
+        mod.scales.copy_(keep)
+        hit = sum(int((g[2].view(torch.int16) != r[2].view(torch.int16))
+                      .sum()) for g, r in zip(bad, ref) if g[0] == victim)
+        log(f"  planted fault, {victim} weight scales shifted by one "
+            f"channel: outputs differ in {hit} lanes (must be > 0) "
+            f"{'BREACH' if hit else 'missed'}")
+    return order_ok and differ == 0 and hit > 0
+
+
+def format_phase(torch, qt, case):
+    """One storage format at 2 layers: the card's kernel path against the
+    plain path on the CPU (the same weights), the prefill logits and three
+    decode steps from shared quantized state (both sides decode from the
+    plain path's cache and are fed its greedy token); then 6 decode steps of
+    8 slots on the card, timed, with the launch counters around them.
+
+    The bound is the JAX suite's 0.15 + 0.05*|plain| elementwise, except
+    for w8a8: its dynamic per-token int8 quantizer inside every GEMM turns
+    a last-bit difference upstream (cuBLAS and the CPU sum in other orders)
+    into a whole code step, as posit8 rounding does on the ladder, so that
+    check is statistical (relative error at most 0.05, at most 0.5% of the
+    logits outside the elementwise bound, as the ladder's).  The first card
+    call read w8a8 at an atol of 0.254; the other formats at most 0.066.
+    What that loose check cannot see, shared_gemm_check holds exactly: every
+    w8a8 GEMM of the model fed the CPU's input."""
+    from quantized_training_torch.ops import launch_counts, \
+        reset_launch_counts
+    label, fmt, cache, geom, kernels = case
+    cfg, qc = serving_config(qt, 2, fmt, cache, geom)
+    log(f"phase 4b: {label}: 2-layer {geom} width ({cfg.hidden_size}), {fmt} "
+        f"weights, {cache} cache; kernel path vs plain path (atol 0.15, "
+        f"rtol 0.05)")
+    fresh_peak(torch)
+    params = qt.random_params(cfg, fmt, 64, seed=SEED, device="cuda")
+    gpu = qt.LlamaForCausalLM(cfg, qc, device="cuda")
+    gpu.load_state_dict(params, assign=True)
+    cpu = qt.LlamaForCausalLM(cfg, qc, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in params.items()}, assign=True)
+    del params
+    S = 128
+    ids = torch.randint(0, cfg.vocab_size, (1, S),
+                        generator=torch.Generator().manual_seed(SEED))
+    worst, ok = 0.0, True
+    statistical = fmt == "w8a8"
+    tokens = {"kernel": [], "plain": []}
+    seen = {"kernel": [], "plain": []}
+    with torch.no_grad():
+        lg, _ = gpu(ids.cuda(), use_cache=True, prompt_len=S)
+        lc, cc = cpu(ids, use_cache=True, prompt_len=S)
+        lg = lg.cpu()
+        for step in range(4):
+            what = "prefill logits" if step == 0 else f"decode step {step}"
+            step_ok, err = check_close(what, lg, lc, 0.15, 0.05)
+            rel = float(torch.linalg.norm(lg - lc) / torch.linalg.norm(lc))
+            bad = float(((lg - lc).abs() > 0.15 + 0.05 * lc.abs()).float()
+                        .mean())
+            log(f"    relative error {rel:.5f}, outside {bad:.6f}")
+            if statistical:
+                step_ok = rel <= 0.05 and bad <= 0.005
+            ok, worst = ok and step_ok, max(worst, err)
+            seen["kernel"].append(lg)
+            seen["plain"].append(lc)
+            tokens["kernel"].append(int(lg[0, -1].argmax()))
+            tokens["plain"].append(int(lc[0, -1].argmax()))
+            if step == 3:
+                break
+            tok = torch.tensor([[tokens["plain"][-1]]])
+            cg = [type(c)(*(t.cuda() for t in c)) for c in cc]
+            lg, _ = gpu(tok.cuda(), use_cache=True, caches=cg,
+                        cache_index=S + step)
+            lc, cc = cpu(tok, use_cache=True, caches=cc, cache_index=S + step)
+            lg = lg.cpu()
+    if statistical:
+        ok = shared_gemm_check(torch, gpu, cpu, ids, S) and ok
+    del cpu, cc
+    digests = {side: digest_of(torch, seen[side]) for side in seen}
+    log(f"  worst error {worst:.6g}; greedy tokens {tokens}; digests "
+        f"{digests}")
+
+    # decode at 8 slots, the launch counters around the timed steps; the
+    # peak memory of serving them (weights, caches, activations), not of
+    # packing the weights
+    B, steps = 8, 6
+    ids8 = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(SEED)).cuda()
+    fresh_peak(torch)
+    with torch.no_grad():
+        logits, caches = gpu(ids8, use_cache=True, prompt_len=S,
+                             last_logit_only=True)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        times = []
+        reset_launch_counts()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = gpu(tok, use_cache=True, caches=caches,
+                                 cache_index=S + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        counts = launch_counts()
+    ms = sorted(times)[steps // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(logits).all())
+    del gpu, caches, logits
+    log(f"  decode, {B} slots: {ms:.3f} ms/step (median of "
+        f"{[round(t, 3) for t in times]}), peak {peak:.2f} GiB; launches in "
+        f"{steps} steps {counts}")
+    if not ok:
+        fail(f"{label}: kernel path disagrees with the plain path")
+    if not finite or any(counts[k] == 0 for k in kernels):
+        fail(f"{label}: decode logits finite {finite}, a kernel of its path "
+             f"({kernels}) never launched: {counts}")
+    return {"decode_ms_per_step": ms, "peak_gib": peak, "worst_err": worst,
+            "greedy_equal": tokens["kernel"] == tokens["plain"]}, counts
 
 
 def bench_config(qt, layers):
@@ -1507,15 +2167,19 @@ def train_phase(torch, qt):
     return counts
 
 
-def serve_phase(torch, qt):
+def serve_phase(torch, qt, cache="int4", label="serving"):
+    """16 greedy requests (prompts 64-2048 tokens, 32 new tokens each)
+    through ContinuousBatchingEngine on 8 slots of the 32-layer 7B w4a16
+    model with ``cache``; prints ``<label> {...}`` and returns the launch
+    counters of the run and of one decode step."""
     from quantized_training_torch.ops import launch_counts, \
         reset_launch_counts
     import numpy as np
 
-    log("phase 6: serve LLaMA-2 7B width, 32 layers, w4a16/64, int4 cache "
-        "P=2048 R=128, 8 slots, 16 greedy requests x 32 new tokens")
-    cfg, qc = serving_config(qt, 32)
-    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 6: serve LLaMA-2 7B width, 32 layers, w4a16/64, {cache} "
+        "cache P=2048 R=128, 8 slots, 16 greedy requests x 32 new tokens")
+    cfg, qc = serving_config(qt, 32, "w4a16", cache)
+    fresh_peak(torch)
     t0 = time.perf_counter()
     model = qt.LlamaForCausalLM(cfg, qc, device="cuda")
     model.load_state_dict(qt.random_params(cfg, "w4a16", 64, seed=SEED,
@@ -1572,9 +2236,9 @@ def serve_phase(torch, qt):
         f"{(generated - len(results)) / stats['decode_s']:.1f} tokens/s; "
         f"host CPU {1e3 * stats['decode_cpu_s'] / stats['steps']:.2f} "
         f"ms/step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  end to end: {wall:.2f} s, {generated / wall:.1f} generated "
-        f"tokens/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"tokens/s; peak device memory {peak:.2f} GiB")
     log(f"  launches in the serving run: {launches}")
     if sorted(results) != sorted(rids):
         fail(f"requests unfinished: {set(rids) - set(results)}")
@@ -1582,7 +2246,8 @@ def serve_phase(torch, qt):
         if len(toks) != new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             fail(f"request {rid}: {len(toks)} tokens, {toks[:8]}...")
-    serving = ("affine_w4_matmul", "flash_attn_fwd", "int_kv_decode")
+    decode_kernel = "kivi_decode" if cache == "kivi2" else "int_kv_decode"
+    serving = ("affine_w4_matmul", "flash_attn_fwd", decode_kernel)
     if any(launches[k] == 0 for k in serving):
         fail(f"a kernel of the serving path was never launched: {launches}")
 
@@ -1593,8 +2258,10 @@ def serve_phase(torch, qt):
     first = engine.caches[0]
     positions = (first.main_len + first.res_len)[:, None].to(torch.int64)
     enqueue, done = [], []
-    for _ in range(7):
+    for i in range(7):
         torch.cuda.synchronize()
+        if i == 0:
+            reset_launch_counts()
         t = time.perf_counter()
         with torch.no_grad():
             model(engine.tokens, positions=positions, use_cache=True,
@@ -1602,9 +2269,28 @@ def serve_phase(torch, qt):
         enqueue.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         done.append(time.perf_counter() - t)
+        if i == 0:
+            step_counts = launch_counts()
     log(f"  one decode forward (median of 7): host enqueue "
         f"{1e3 * sorted(enqueue)[3]:.2f} ms, completion "
-        f"{1e3 * sorted(done)[3]:.2f} ms")
+        f"{1e3 * sorted(done)[3]:.2f} ms; launches {step_counts}")
+    # one decode step: the fused decode once per layer; the storage GEMM
+    # for qkv, o, gate, up and down in every layer, and the lm_head
+    L = cfg.num_hidden_layers
+    want = {decode_kernel: L, "affine_w4_matmul": 5 * L + 1}
+    if any(step_counts[k] != n for k, n in want.items()):
+        fail(f"one decode step launched {step_counts}, expected {want}")
+    result = {
+        "prefill_tokens_per_s": sum(lengths) / stats["prefill_s"],
+        "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["steps"],
+        "decode_host_cpu_ms_per_step":
+            1e3 * stats["decode_cpu_s"] / stats["steps"],
+        "decode_forward_enqueue_ms": 1e3 * sorted(enqueue)[3],
+        "decode_forward_completion_ms": 1e3 * sorted(done)[3],
+        "end_to_end_tokens_per_s": generated / wall, "peak_gib": peak,
+        "requests": len(results), "decode_steps": stats["steps"]}
+    log(f"{label} " + json.dumps(result))
+    del engine, model
     return launches
 
 
@@ -1645,23 +2331,40 @@ def main():
     rows = kernel_phases(torch, timer)
     rows.update(rounding_kernel_phases(torch, timer))
     rows.update(training_kernel_phases(torch, timer))
+    rows.update(storage_kernel_phases(torch, timer))
     del timer
     parity_phase(torch, qt)
+    formats, format_counts = {}, {}
+    for case in FORMAT_CASES:
+        formats[case[0]], format_counts[case[0]] = format_phase(torch, qt,
+                                                                case)
+    log("formats " + json.dumps(formats))
     ladder_parity_phase(torch, qt)
     ladder = ladder_phase(torch, qt)
     train_parity_phase(torch, qt)
     train_witness_phase(torch, qt)
     train = train_phase(torch, qt)
     serving = serve_phase(torch, qt)
-    # each kernel's launches in the main path that runs it: the serving run
-    # (slice 1), one residual_fusion forward (slice 2) or one quantized
-    # train step (slice 3); the fused quantize-matmul is on none
-    path = {"affine_w4_matmul": serving, "flash_attn_fwd": serving,
-            "int_kv_decode": serving, "flash_attn_fwd_lse": train,
-            "flash_bwd_di": train, "flash_bwd_dq": train,
-            "flash_bwd_dkv": train, "adam8bit_packed": train}
+    flagship = serve_phase(torch, qt, "kivi2", "serving_kivi")
+    # each kernel's launches in the main path that runs it: the flagship
+    # serving run (slice 4: the w4 GEMM, flash prefill, the KIVI decode),
+    # slice 1's serving run (the int4 decode), a format's 6 timed decode
+    # steps (the other storage GEMMs, the int8 decode), one residual_fusion
+    # forward (slice 2) or one quantized train step (slice 3); the fused
+    # quantize-matmul and the dequant stream are on none
+    path = {"affine_w4_matmul": flagship, "flash_attn_fwd": flagship,
+            "kivi_decode": flagship, "int_kv_decode": serving,
+            "int_kv_decode_8bit": format_counts["w4a16_kv8"],
+            "affine_w2_matmul": format_counts["w2a16_kivi2_13b"],
+            "posit_storage_matmul": format_counts["posit8_kv4"],
+            "mx_storage_matmul": format_counts["mx8_kv4"],
+            "flash_attn_fwd_lse": train, "flash_bwd_di": train,
+            "flash_bwd_dq": train, "flash_bwd_dkv": train,
+            "adam8bit_packed": train}
+    counter = {"int_kv_decode_8bit": "int_kv_decode",
+               "affine_w2_matmul": "affine_w4_matmul"}
     for key, row in rows.items():
-        row["launches"] = path.get(key, ladder)[key]
+        row["launches"] = path.get(key, ladder)[counter.get(key, key)]
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,9 @@ both packages can compute with identical weights:
     sd = params_from_jax(params_np, storage_np)
     model.load_state_dict(sd)
 
+``cache_from_jax`` turns a JAX ``QuantizedKVCache`` into the port's, so
+both packages can decode from one quantized state.
+
 ``adam8bit_state_from_jax`` maps the JAX package's 8-bit Adam state onto
 an :class:`~training.optim8bit.Adam8bit` of the same parameters, so both
 packages can step from one non-zero state.
@@ -27,9 +30,11 @@ from .models.layers import Embed, QDense, QRMSNorm
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .quantize.config import QuantConfig
 from .quantize.storage import _pack_kernel
+from .serving.kv_cache import QuantizedKVCache
 from .utils import resolve_device
 
-__all__ = ["adam8bit_state_from_jax", "params_from_jax", "random_params"]
+__all__ = ["adam8bit_state_from_jax", "cache_from_jax", "params_from_jax",
+           "random_params"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -62,6 +67,12 @@ def params_from_jax(params_np: Mapping,
     if storage_np:
         flat.update(_flatten(storage_np))
     return {name: _to_torch(val) for name, val in flat.items()}
+
+
+def cache_from_jax(cache_np) -> QuantizedKVCache:
+    """One layer's JAX ``QuantizedKVCache`` (fields as numpy arrays) -> the
+    port's, as CPU tensors of the same dtypes and layouts."""
+    return QuantizedKVCache(*(_to_torch(a) for a in cache_np))
 
 
 def adam8bit_state_from_jax(jax_state, optimizer: torch.optim.Optimizer,

@@ -1,12 +1,14 @@
-// W4A16 group-affine storage GEMM:  y = x @ W,
+// W4A16 / W2A16 group-affine storage GEMM:  y = x @ W,
 //   W[k, n] = bf16((c[k, n] - zp[g, n]) * sf[g, n]),  g = k / group,
 // x (M, K) bf16, y (M, N) bf16, accumulation in f32.
 //
 // Replaces quantized_training_tpu/ops/pallas/affine_storage.py:255 (_kernel,
 // reached through affine_matmul).  Codes are the port's storage layout,
-// unchanged: (K/8, N) int32 words, bit field p of word (r, n) holding the
-// centered code c - 8 of row 8r + p as a 4-bit two's-complement field; sf and
-// zp are (K/group, N) f32.
+// unchanged: (K/PER, N) int32 words, PER = 32/NBITS (8 for w4, 16 for w2),
+// bit field p of word (r, n) holding the centered code c - 2^(NBITS-1) of row
+// PER*r + p as an NBITS-wide two's-complement field; sf and zp are
+// (K/group, N) f32.  w2x4 (w2 values in the w4 word layout, zero points
+// shifted by +6) runs the NBITS = 4 form.
 //
 // Weight form: each weight is dequantized directly as (c - zp) * sf in f32
 // and rounded once to bf16 -- exactly the weight the plain version
@@ -14,15 +16,17 @@
 // and the plain version differ only in the order of the f32 sums.
 //
 // What bounds it on an H100: at decode (M <= 8) the bytes of the codes and
-// qparams (K*N/2 + K*N/8 per GEMM) over 3.35 TB/s; at prefill the
-// 2*M*K*N operations.  Design for this first version (no tensor cores yet):
+// qparams (K*N*NBITS/8 + K*N/8 per GEMM at group 64) over 3.35 TB/s; at
+// prefill the 2*M*K*N operations.  Design for this first version (no tensor
+// cores yet):
 //   * M <= 8: one thread per output column, eight warps per block splitting
 //     K by groups, each warp loading a group's words for 32 adjacent columns
 //     (128-byte coalesced rows) before using them, so eight loads are in
 //     flight per warp; x rows are read through the L1 cache; the eight
 //     partial sums meet in shared memory.  No 8x padding of the rows.
-//   * M > 8: a 64x64 output tile per block, K walked 64 rows (8 word rows)
-//     at a time; the word tile is unpacked and dequantized once into shared
+//   * M > 8: a 64x64 output tile per block, K walked 64 rows (64/PER word
+//     rows) at a time; the word tile is unpacked and dequantized once into
+//     shared
 //     memory and reused by all 64 rows; each thread accumulates a 4x4 tile
 //     with CUDA-core FMAs.
 // Words are unpacked by a left shift on the unsigned word and an arithmetic
@@ -51,10 +55,13 @@ __device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
   return static_cast<uint16_t>(u >> 16);
 }
 
+template <int NBITS>
 __device__ __forceinline__ float dequant(uint32_t word, int p, float zp,
                                          float sf) {
-  int32_t c = static_cast<int32_t>(word << (28 - 4 * p)) >> 28;  // c - 8
-  return round_bf16((static_cast<float>(c + 8) - zp) * sf);
+  constexpr int MID = 1 << (NBITS - 1);
+  const int32_t c = static_cast<int32_t>(word << (32 - NBITS * (p + 1))) >>
+                    (32 - NBITS);  // c - MID
+  return round_bf16((static_cast<float>(c + MID) - zp) * sf);
 }
 
 // ---- M <= 8 ---------------------------------------------------------------
@@ -63,16 +70,18 @@ constexpr int SM_WARPS = 8;
 constexpr int SM_BN = 32;
 constexpr int SM_CHUNK = 8;  // words loaded before use, per lane
 
+template <int NBITS>
 __global__ void __launch_bounds__(SM_WARPS * 32)
 w4_gemm_small_m(const uint16_t* __restrict__ x,
                 const int32_t* __restrict__ codes,
                 const float* __restrict__ sf, const float* __restrict__ zp,
                 uint16_t* __restrict__ y, int M, int K, int N, int group) {
+  constexpr int PER = 32 / NBITS;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n = blockIdx.x * SM_BN + lane;
   const int ngroups = K / group;
-  const int gwords = group / 8;
+  const int gwords = group / PER;
 
   float acc[SM_MAXM];
 #pragma unroll
@@ -94,21 +103,24 @@ w4_gemm_small_m(const uint16_t* __restrict__ x,
 #pragma unroll
         for (int w = 0; w < SM_CHUNK; ++w) {
           if (w >= nw) break;
-          float wv[8];
+          float wv[PER];
 #pragma unroll
-          for (int p = 0; p < 8; ++p) wv[p] = dequant(words[w], p, z, s);
-          const int k0 = (r0 + w) * 8;
+          for (int p = 0; p < PER; ++p) wv[p] = dequant<NBITS>(words[w], p, z, s);
+          const int k0 = (r0 + w) * PER;
 #pragma unroll
           for (int m = 0; m < SM_MAXM; ++m) {
             if (m >= M) break;
-            const uint4 xv = *reinterpret_cast<const uint4*>(
-                x + static_cast<size_t>(m) * K + k0);
-            const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
             float a = acc[m];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              a += bf16_bits_to_float(xw[q] & 0xffffu) * wv[2 * q];
-              a += bf16_bits_to_float(xw[q] >> 16) * wv[2 * q + 1];
+            for (int h = 0; h < PER / 8; ++h) {  // 8 x values per 16 bytes
+              const uint4 xv = *reinterpret_cast<const uint4*>(
+                  x + static_cast<size_t>(m) * K + k0 + 8 * h);
+              const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                a += bf16_bits_to_float(xw[q] & 0xffffu) * wv[8 * h + 2 * q];
+                a += bf16_bits_to_float(xw[q] >> 16) * wv[8 * h + 2 * q + 1];
+              }
             }
             acc[m] = a;
           }
@@ -133,9 +145,10 @@ w4_gemm_small_m(const uint16_t* __restrict__ x,
 // ---- M > 8 ----------------------------------------------------------------
 constexpr int TB_M = 64;
 constexpr int TB_N = 64;
-constexpr int TB_K = 64;  // 8 word rows
+constexpr int TB_K = 64;  // 64/PER word rows
 constexpr int TB_THREADS = 256;
 
+template <int NBITS>
 __global__ void __launch_bounds__(TB_THREADS)
 w4_gemm_tiled(const uint16_t* __restrict__ x,
               const int32_t* __restrict__ codes,
@@ -144,13 +157,15 @@ w4_gemm_tiled(const uint16_t* __restrict__ x,
   __shared__ __align__(16) float xs[TB_K][TB_M];  // x tile, k-major
   __shared__ __align__(16) float ws[TB_K][TB_N];  // dequantized weights
 
+  constexpr int PER = 32 / NBITS;
+  constexpr int WROWS = TB_K / PER;  // word rows per K step
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // output columns 4*tx .. 4*tx+3
   const int ty = tid / 16;  // output rows 4*ty .. 4*ty+3
   const int m0 = blockIdx.y * TB_M;
   const int n0 = blockIdx.x * TB_N;
-  const int kwords = K / 8;
-  const int gwords = group / 8;
+  const int kwords = K / PER;
+  const int gwords = group / PER;
 
   float acc[4][4];
 #pragma unroll
@@ -179,13 +194,13 @@ w4_gemm_tiled(const uint16_t* __restrict__ x,
         }
       }
     }
-    // word tile: 8 word rows x 64 columns, two words per thread
+    // word tile: WROWS word rows x 64 columns
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < WROWS * TB_N / TB_THREADS; ++h) {
       const int idx = tid + TB_THREADS * h;
       const int wr = idx / TB_N;
       const int col = idx % TB_N;
-      const int r = k0 / 8 + wr;
+      const int r = k0 / PER + wr;
       const int n = n0 + col;
       if (r < kwords && n < N) {
         const uint32_t word = static_cast<uint32_t>(
@@ -194,10 +209,11 @@ w4_gemm_tiled(const uint16_t* __restrict__ x,
         const float s = sf[static_cast<size_t>(g) * N + n];
         const float z = zp[static_cast<size_t>(g) * N + n];
 #pragma unroll
-        for (int p = 0; p < 8; ++p) ws[wr * 8 + p][col] = dequant(word, p, z, s);
+        for (int p = 0; p < PER; ++p)
+          ws[wr * PER + p][col] = dequant<NBITS>(word, p, z, s);
       } else {
 #pragma unroll
-        for (int p = 0; p < 8; ++p) ws[wr * 8 + p][col] = 0.f;
+        for (int p = 0; p < PER; ++p) ws[wr * PER + p][col] = 0.f;
       }
     }
     __syncthreads();
@@ -236,25 +252,35 @@ const char* qt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (M, K) bf16, codes (K/8, N) int32, sf/zp (K/group, N) f32, y (M, N)
-// bf16, all contiguous; K % group == 0, group % 8 == 0, x 16-byte aligned.
+// x (M, K) bf16, codes (K/PER, N) int32, sf/zp (K/group, N) f32, y (M, N)
+// bf16, all contiguous; nbits 4 or 2 (PER = 32/nbits); K % group == 0,
+// group % PER == 0, x 16-byte aligned.
 int affine_w4_matmul(const void* x, const void* codes, const void* sf,
                      const void* zp, void* y, int M, int K, int N, int group,
-                     void* stream) {
+                     int nbits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const uint16_t*>(x);
   const auto* cp = static_cast<const int32_t*>(codes);
   const auto* sp = static_cast<const float*>(sf);
   const auto* zpp = static_cast<const float*>(zp);
   auto* yp = static_cast<uint16_t*>(y);
+  if (nbits != 4 && nbits != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= SM_MAXM) {
     dim3 grid((N + SM_BN - 1) / SM_BN);
-    w4_gemm_small_m<<<grid, SM_WARPS * 32, 0, s>>>(xp, cp, sp, zpp, yp, M, K,
-                                                   N, group);
+    if (nbits == 4)
+      w4_gemm_small_m<4><<<grid, SM_WARPS * 32, 0, s>>>(xp, cp, sp, zpp, yp,
+                                                        M, K, N, group);
+    else
+      w4_gemm_small_m<2><<<grid, SM_WARPS * 32, 0, s>>>(xp, cp, sp, zpp, yp,
+                                                        M, K, N, group);
   } else {
     dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
-    w4_gemm_tiled<<<grid, TB_THREADS, 0, s>>>(xp, cp, sp, zpp, yp, M, K, N,
-                                              group);
+    if (nbits == 4)
+      w4_gemm_tiled<4><<<grid, TB_THREADS, 0, s>>>(xp, cp, sp, zpp, yp, M, K,
+                                                   N, group);
+    else
+      w4_gemm_tiled<2><<<grid, TB_THREADS, 0, s>>>(xp, cp, sp, zpp, yp, M, K,
+                                                   N, group);
   }
   return static_cast<int>(cudaGetLastError());
 }

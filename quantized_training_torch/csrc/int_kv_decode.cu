@@ -1,23 +1,26 @@
-// One decode step of attention over the two-tier int4 per-token-symmetric
-// KV cache: a quantized main tier plus a bf16 residual ring.
+// One decode step of attention over the two-tier int4 or int8
+// per-token-symmetric KV cache: a quantized main tier plus a bf16 residual
+// ring.
 //   q (B, H, D) bf16; k/v codes (B, KV, P/8, D) int32, token-planar: bit
 //   field s of word row t' holds the 4-bit two's-complement code of token
-//   s*(P/8) + t'; ks/vs (B, KV, 1, P) f32 per-token scales; k/v residual
+//   s*(P/8) + t'; or (B, KV, P, D) int8 codes, one row per token; ks/vs
+//   (B, KV, 1, P) f32 per-token scales; k/v residual
 //   (B, KV, R, D) bf16; main_len/res_len (B,) int32.  Out (B, H, D) bf16.
 //   qb = bf16(q * scale);  s_main[t] = (qb . c_k[t]) * ks[t], t < main_len;
 //   s_res[r] = qb . k_res[r], r < res_len;  one softmax over both tiers;
 //   out = (sum_t bf16(p_t * vs[t]) c_v[t] + sum_r bf16(p_r) v_res[r]) / l.
 //
 // Replaces quantized_training_tpu/ops/pallas/int_kv_attention.py:77
-// (_kernel, reached through int_kv_decode_attention) in the form serving
-// runs: bits=4, bf16 dots (int_dots=False), untransposed K.
+// (_kernel, reached through int_kv_decode_attention) in the forms serving
+// runs: bits 4 or 8, bf16 dots (int_dots=False), untransposed K.
 //
 // What bounds it on an H100: the bytes of the codes, scales and residual
 // ring over 3.35 TB/s (about 88 MB per layer at 8 full slots of LLaMA-2 7B).
 // The TPU grid is one program per (batch, kv head) -- 256 here, too few to
 // keep 132 SMs' memory pipes busy -- so this kernel splits the tokens
-// (flash-decoding): each block takes 32 word rows (256 tokens) of the main
-// tier, or 256 rows of the residual ring, for one (batch, kv head), keeps
+// (flash-decoding): each block takes 256 tokens of the main tier (32 int4
+// word rows, or 256 int8 rows), or 256 rows of the residual ring, for one
+// (batch, kv head), keeps
 // its scores in shared memory, and writes a partial (max, sum, f32
 // accumulator) per head; a second small kernel merges the partials.  Word
 // rows holding no token below main_len are never read (plane 0 holds the
@@ -33,9 +36,14 @@ namespace {
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int SPLIT_WORDS = 32;              // main-tier word rows per block
-constexpr int SPLIT_TOKENS = 8 * SPLIT_WORDS;  // tokens per block, both tiers
+constexpr int SPLIT_TOKENS = 256;            // tokens per block, both tiers
 constexpr float NEG_INF = -1073741824.0f;    // -2^30
+
+// codes per row and main-tier rows per block: int4 words hold 8 tokens
+template <int BITS> struct Tier {
+  static constexpr int PER = BITS == 4 ? 8 : 1;
+  static constexpr int ROWS = SPLIT_TOKENS / PER;
+};
 
 __device__ __forceinline__ float round_bf16(float v) {
   uint32_t u = __float_as_uint(v);
@@ -54,8 +62,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// code of plane s: a 4-bit field of an int32 word, or an int8 code
+template <int BITS>
 __device__ __forceinline__ int code_of(uint32_t word, int s) {
+  if (BITS == 8) return static_cast<int8_t>(word & 0xffu);
   return static_cast<int32_t>(word << (28 - 4 * s)) >> 28;
+}
+
+// the DL codes (or words) of one lane in main-tier row t
+template <int BITS, int DL>
+__device__ __forceinline__ void load_row(const void* base, size_t row, int D,
+                                         int lane, int32_t* wv) {
+  if (BITS == 8) {
+    const int8_t* p = static_cast<const int8_t*>(base) + row * D + DL * lane;
+#pragma unroll
+    for (int j = 0; j < DL; ++j) wv[j] = p[j];
+  } else {
+    const int32_t* p = static_cast<const int32_t*>(base) + row * D + DL * lane;
+#pragma unroll
+    for (int j = 0; j < DL; ++j) wv[j] = p[j];
+  }
 }
 
 // block-wide max and sum over NTHREADS lanes (red holds NWARPS floats)
@@ -84,16 +110,18 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // G: query heads per kv head; D: head dim (DL = D/32 values per lane).
 // int_kv_decode instantiates D=128, G=1, the LLaMA-2 7B geometry.
-template <int D, int G>
+template <int D, int G, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
-int_kv_split(const uint16_t* __restrict__ q, const int32_t* __restrict__ kc,
-             const float* __restrict__ ks, const int32_t* __restrict__ vc,
+int_kv_split(const uint16_t* __restrict__ q, const void* __restrict__ kc,
+             const float* __restrict__ ks, const void* __restrict__ vc,
              const float* __restrict__ vsc, const uint16_t* __restrict__ kr,
              const uint16_t* __restrict__ vr, const int32_t* __restrict__ main_len,
              const int32_t* __restrict__ res_len, float* __restrict__ m_part,
              float* __restrict__ l_part, float* __restrict__ acc_part, int KV,
              int P, int R, float scale, int n_main) {
   constexpr int DL = D / 32;
+  constexpr int PER = Tier<BITS>::PER;
+  constexpr int SPLIT_WORDS = Tier<BITS>::ROWS;
   __shared__ float qsh[G][D];
   __shared__ float sc[G][SPLIT_TOKENS];
   __shared__ float red[NWARPS];
@@ -107,7 +135,7 @@ int_kv_split(const uint16_t* __restrict__ q, const int32_t* __restrict__ kc,
   const int b = blockIdx.z;
   const int H = KV * G;
   const int NS = gridDim.x;
-  const int Pw = P / 8;
+  const int Pw = P / PER;
   const int ml = min(max(main_len[b], 0), P);
   const int rl = min(max(res_len[b], 0), R);
   const size_t bk = static_cast<size_t>(b) * KV + kvh;
@@ -151,14 +179,12 @@ int_kv_split(const uint16_t* __restrict__ q, const int32_t* __restrict__ kc,
 
   // ---- scores ------------------------------------------------------------
   if (is_main) {
-    const int32_t* kcp = kc + bk * Pw * D;
     const float* ksp = ks + bk * P;
     for (int t = w0 + warp; t < w1; t += NWARPS) {
       int32_t wv[DL];
+      load_row<BITS, DL>(kc, bk * Pw + t, D, lane, wv);
 #pragma unroll
-      for (int j = 0; j < DL; ++j) wv[j] = kcp[static_cast<size_t>(t) * D + DL * lane + j];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
+      for (int s = 0; s < PER; ++s) {
         const int tok = s * Pw + t;
         float part[G];
 #pragma unroll
@@ -166,7 +192,7 @@ int_kv_split(const uint16_t* __restrict__ q, const int32_t* __restrict__ kc,
           float a = 0.f;
 #pragma unroll
           for (int j = 0; j < DL; ++j)
-            a += qreg[g][j] * static_cast<float>(code_of(static_cast<uint32_t>(wv[j]), s));
+            a += qreg[g][j] * static_cast<float>(code_of<BITS>(static_cast<uint32_t>(wv[j]), s));
           part[g] = warp_sum(a);
         }
         if (lane == 0 && tok < ml) {
@@ -230,19 +256,17 @@ int_kv_split(const uint16_t* __restrict__ q, const int32_t* __restrict__ kc,
 #pragma unroll
     for (int j = 0; j < DL; ++j) acc[g][j] = 0.f;
   if (is_main) {
-    const int32_t* vcp = vc + bk * Pw * D;
     for (int t = w0 + warp; t < w1; t += NWARPS) {
       int32_t wv[DL];
+      load_row<BITS, DL>(vc, bk * Pw + t, D, lane, wv);
 #pragma unroll
-      for (int j = 0; j < DL; ++j) wv[j] = vcp[static_cast<size_t>(t) * D + DL * lane + j];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
+      for (int s = 0; s < PER; ++s) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pv = sc[g][s * SPLIT_WORDS + (t - w0)];
 #pragma unroll
           for (int j = 0; j < DL; ++j)
-            acc[g][j] += pv * static_cast<float>(code_of(static_cast<uint32_t>(wv[j]), s));
+            acc[g][j] += pv * static_cast<float>(code_of<BITS>(static_cast<uint32_t>(wv[j]), s));
         }
       }
     }
@@ -303,15 +327,19 @@ __global__ void int_kv_merge(const float* __restrict__ m_part,
   out[bh * D + d] = static_cast<uint16_t>(__float_as_uint(val) >> 16);
 }
 
-template <int D, int G>
+int n_main_splits(int P) {
+  return (P + SPLIT_TOKENS - 1) / SPLIT_TOKENS;
+}
+
+template <int D, int G, int BITS>
 void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kc,
                   const void* ks, const void* vc, const void* vs,
                   const void* kr, const void* vr, const void* ml,
                   const void* rl, float* mp, float* lp, float* ap, int KV,
                   int P, int R, float scale, int n_main) {
-  int_kv_split<D, G><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const int32_t*>(kc),
-      static_cast<const float*>(ks), static_cast<const int32_t*>(vc),
+  int_kv_split<D, G, BITS><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const uint16_t*>(q), kc,
+      static_cast<const float*>(ks), vc,
       static_cast<const float*>(vs), static_cast<const uint16_t*>(kr),
       static_cast<const uint16_t*>(vr), static_cast<const int32_t*>(ml),
       static_cast<const int32_t*>(rl), mp, lp, ap, KV, P, R, scale, n_main);
@@ -328,35 +356,35 @@ const char* qt_error_string(int err) {
 // Number of partial results per (batch, head): main-tier splits, then
 // residual splits.  The caller sizes the scratch buffers with it.
 int int_kv_num_splits(int P, int R) {
-  const int n_main = (P / 8 + SPLIT_WORDS - 1) / SPLIT_WORDS;
   const int n_res = (R + SPLIT_TOKENS - 1) / SPLIT_TOKENS;
-  return n_main + n_res;
+  return n_main_splits(P) + n_res;
 }
 
 // All tensors contiguous.  m_part/l_part (B, H, NS) and acc_part
 // (B, H, NS, D) f32 are scratch, NS = int_kv_num_splits(P, R).
-// D == 128; H == KV (no GQA); P % 8 == 0.
+// D == 128; H == KV (no GQA); bits 4 (P % 8 == 0) or 8.
 int int_kv_decode(const void* q, const void* k_codes, const void* k_scale,
                   const void* v_codes, const void* v_scale, const void* k_res,
                   const void* v_res, const void* main_len, const void* res_len,
                   void* m_part, void* l_part, void* acc_part, void* out, int B,
-                  int H, int KV, int D, int P, int R, float scale,
+                  int H, int KV, int D, int P, int R, int bits, float scale,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_main = (P / 8 + SPLIT_WORDS - 1) / SPLIT_WORDS;
+  const int n_main = n_main_splits(P);
   const int NS = int_kv_num_splits(P, R);
   const int G = H / KV;
   dim3 grid(NS, KV, B);
   auto* mp = static_cast<float*>(m_part);
   auto* lp = static_cast<float*>(l_part);
   auto* ap = static_cast<float*>(acc_part);
-#define QT_LAUNCH(DD, GG)                                                    \
-  launch_split<DD, GG>(grid, st, q, k_codes, k_scale, v_codes, v_scale,      \
-                       k_res, v_res, main_len, res_len, mp, lp, ap, KV, P, R, \
-                       scale, n_main)
+#define QT_LAUNCH(DD, GG, BB)                                              \
+  launch_split<DD, GG, BB>(grid, st, q, k_codes, k_scale, v_codes, v_scale,  \
+                           k_res, v_res, main_len, res_len, mp, lp, ap, KV,  \
+                           P, R, scale, n_main)
   // Only the served geometry is instantiated (and checked on the card);
   // another (D, G) pair is one more line here and one more check.
-  if (D == 128 && G == 1) QT_LAUNCH(128, 1);
+  if (D == 128 && G == 1 && bits == 4) QT_LAUNCH(128, 1, 4);
+  else if (D == 128 && G == 1 && bits == 8) QT_LAUNCH(128, 1, 8);
   else return static_cast<int>(cudaErrorInvalidValue);
 #undef QT_LAUNCH
   cudaError_t err = cudaGetLastError();

@@ -140,3 +140,27 @@ __device__ __forceinline__ float qt_round(float x, const QtFormat& f) {
   }
   return BF16 ? qt_bf16(y) : y;
 }
+
+// The value of a two's-complement posit(nbits, es) code (its low nbits
+// bits), as numerics/posit.py:decode_posit computes it: 0 -> 0, NaR -> NaN.
+// posit_storage_matmul.cu builds its 256-entry decode table with it.
+__device__ __forceinline__ float qt_posit_decode(int code, int nbits, int es) {
+  const int width_mask = (1 << nbits) - 1;
+  const int c = code & width_mask;
+  const int nar = 1 << (nbits - 1);
+  if (c == 0) return 0.f;
+  if (c == nar) return __int_as_float(0x7fc00000);
+  const bool sign = c >= nar;
+  const int mag = sign ? ((2 * nar - c) & width_mask) : c;
+  const unsigned u = (static_cast<unsigned>(mag) << (32 - nbits)) & 0x7fffffffu;
+  const bool top_one = (u & 0x40000000u) != 0;
+  const int run = top_one ? __clz(static_cast<int>(~u & 0x7fffffffu)) - 1
+                          : __clz(static_cast<int>(u | 1u)) - 1;
+  const int scale_regime = top_one ? (run - 1) << es : -(run << es);
+  const unsigned tail = u << (run + 2);
+  const int e = es > 0 ? static_cast<int>(tail >> (32 - es)) & ((1 << es) - 1) : 0;
+  const unsigned frac23 = ((tail << es) >> 9) & 0x7fffffu;
+  const float v = __uint_as_float((static_cast<unsigned>(scale_regime + e + 127) << 23) |
+                                  frac23);
+  return sign ? -v : v;
+}

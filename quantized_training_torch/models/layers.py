@@ -23,10 +23,13 @@ import torch
 import torch.nn as nn
 
 from ..ops.affine_storage import affine_matmul
+from ..ops.int8_matmul import w8a8_matmul
+from ..ops.mx_storage import mx_matmul
+from ..ops.posit_storage import posit_matmul
 from ..qspec import QScheme, QuantizationSpec
 from ..quantize.config import OpCategory, QuantConfig
 from ..quantize.fake_quant import fake_quantize
-from ..quantize.storage import _eligible
+from ..quantize.storage import _eligible, storage_shapes
 from ..utils import resolve_device
 
 __all__ = ["FakeQuant", "QuantMixin", "QDense", "QLayerNorm", "QRMSNorm",
@@ -193,9 +196,11 @@ class QDense(nn.Module, QuantMixin):
     """Bias-free dense layer, y = x @ kernel with kernel (in, out).
 
     With ``qconfig.storage_fmt`` set and an eligible shape, the kernel is
-    not a param at all: the layer holds the packed ``codes``/``scales``/
-    ``zero_points`` buffers (quantize/storage.py) and runs the storage GEMM
-    (ops/affine_storage.py).  Otherwise ``kernel`` is a float32 param, cast
+    not a param at all: the layer holds the packed ``codes`` (and
+    ``scales``/``zero_points``) buffers of its format (quantize/storage.py)
+    and runs that format's storage GEMM (ops/posit_storage.py,
+    ops/mx_storage.py, ops/affine_storage.py, ops/int8_matmul.py).
+    Otherwise ``kernel`` is a float32 param, cast
     to the compute dtype and fake-quantized at the weight site; the product
     accumulates in f32 and rounds to the compute dtype (on CUDA the bf16
     operands go to ``torch.matmul``; on the CPU the operands are widened to
@@ -221,15 +226,12 @@ class QDense(nn.Module, QuantMixin):
         self.group = qconfig.storage_group if qconfig is not None else 0
         self.storage = fmt is not None and _eligible(
             f"{path}.kernel", (in_features, features), fmt, self.group)
+        self.storage_fmt = fmt if self.storage else None
         if self.storage:
-            ng = in_features // self.group
-            self.register_buffer("codes", torch.zeros(
-                (in_features // 8, features), dtype=torch.int32,
-                device=device))
-            self.register_buffer("scales", torch.ones(
-                (ng, features), dtype=torch.float32, device=device))
-            self.register_buffer("zero_points", torch.zeros(
-                (ng, features), dtype=torch.float32, device=device))
+            for name, (shape, dt) in storage_shapes(
+                    fmt, in_features, features, self.group).items():
+                self.register_buffer(name, torch.zeros(
+                    shape, dtype=dt, device=device))
         else:
             self.kernel = nn.Parameter(torch.zeros(
                 (in_features, features), dtype=torch.float32, device=device),
@@ -245,14 +247,30 @@ class QDense(nn.Module, QuantMixin):
                 x = bwd_quantize(x, err)
         return x
 
+    def _storage_matmul(self, x2: torch.Tensor) -> torch.Tensor:
+        """x2 @ dequant(packed codes) through the format's storage GEMM."""
+        fmt = self.storage_fmt
+        if fmt == "posit8":
+            return posit_matmul(x2, self.codes)
+        if fmt == "mx8":
+            return mx_matmul(x2, self.codes, self.scales,
+                             block_size=self.group)
+        if fmt == "w8a8":
+            # dynamic per-token activation quantization is inside the op
+            return w8a8_matmul(x2, self.codes, self.scales)
+        # w2x4 holds w2 values in the w4 word layout (zp shifted at pack
+        # time), so it runs the nbits=4 GEMM unchanged
+        return affine_matmul(x2, self.codes, self.scales, self.zero_points,
+                             nbits=2 if fmt == "w2a16" else 4,
+                             group_size=self.group)
+
     def forward(self, x: torch.Tensor,
                 skip_input_quant: bool = False) -> torch.Tensor:
         if self.storage:
             x = self._input_site(x, skip_input_quant)
             lead = x.shape[:-1]
             x2 = x.to(self.dtype).reshape(-1, self.in_features).contiguous()
-            y = affine_matmul(x2, self.codes, self.scales, self.zero_points,
-                              nbits=4, group_size=self.group)
+            y = self._storage_matmul(x2)
             return y.to(self.dtype).reshape(*lead, self.features)
         kernel = self.kernel.to(self.dtype)
         x = self._input_site(x, skip_input_quant)

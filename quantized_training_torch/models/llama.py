@@ -11,8 +11,10 @@ Attention runs one of three paths:
     matmul site is off or a direct rounding: q/k/v are rounded before the
     kernel, the probabilities inside it (two-pass form) and o_proj's input
     rounding rides its output write;
-  * fused int4 decode (ops/int_kv_attention.py) over the cache's codes,
-    scales and residual ring, visibility taken from the cache lengths;
+  * fused decode over the cache's codes, qparams and residual ring,
+    visibility taken from the cache lengths: the per-token symmetric int4
+    or int8 cache through ops/int_kv_attention.py, the KIVI group-affine
+    cache through ops/kivi_attention.py;
   * naive attention over materialized K/V with an additive mask, every
     quantization site explicit (scores scaling, softmax input, both
     matmuls' inputs).
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from ..numerics import quantize_fn, quantize_fn_unit
 from ..ops.flash_attention import flash_attention
 from ..ops.int_kv_attention import int_kv_decode_attention
+from ..ops.kivi_attention import kivi_decode_attention
 from ..quantize.config import OpCategory, QuantConfig
 from ..serving.kv_cache import (
     MASK_VALUE, KVCacheConfig, QuantizedKVCache, append_per_slot,
@@ -90,8 +93,8 @@ class LlamaConfig:
     kv_cache: Optional[KVCacheConfig] = None
     # Route eligible prefill attention through the flash kernel.
     use_flash_attention: bool = False
-    # Route eligible int-sym decode steps through the fused decode kernel
-    # (codes dequantized on chip; no materialized K/V).
+    # Route eligible decode steps (int-sym or KIVI cache) through the fused
+    # decode kernels (codes dequantized on chip; no materialized K/V).
     use_fused_kivi: bool = True
     # One (hidden, KV*(group+2)*D) GEMM for q/k/v, columns interleaved per
     # kv head ([q-group | k | v]); fuse_qkv_params converts unfused params.
@@ -123,6 +126,11 @@ class LlamaConfig:
     @staticmethod
     def llama2_7b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def llama2_13b() -> "LlamaConfig":
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_hidden_layers=40, num_attention_heads=40)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
@@ -243,6 +251,17 @@ class LlamaAttention(nn.Module, QuantMixin):
                         k_transposed=False)
                     ctx = ctx.reshape(B, 1, H * D)
                     return self.o_proj(ctx), new_cache
+                if (attention_mask is None
+                        and self._kivi_fused_eligible(kcfg)):
+                    ctx = kivi_decode_attention(
+                        q[:, 0].contiguous(), c.k_codes, c.k_scale, c.k_zp,
+                        c.v_codes, c.v_scale, c.v_zp,
+                        c.k_res.to(dtype), c.v_res.to(dtype),
+                        ml.contiguous(), rl.contiguous(),
+                        bits_k=kcfg._pack_bits(kcfg.k_spec),
+                        bits_v=kcfg._pack_bits(kcfg.v_spec))
+                    ctx = ctx.reshape(B, 1, H * D)
+                    return self.o_proj(ctx), new_cache
                 if attention_mask is None:
                     # post-append: residual slot r visible iff r < res_len
                     attention_mask = per_slot_mask(kcfg, ml, rl - 1)
@@ -280,6 +299,18 @@ class LlamaAttention(nn.Module, QuantMixin):
         """The fused int-sym decode gate: config flag on, sym-bits cache and
         no quantization on the attention sites."""
         if not self.config.use_fused_kivi or kcfg.sym_bits is None:
+            return False
+        return self._attention_sites_clear()
+
+    def _kivi_fused_eligible(self, kcfg: KVCacheConfig) -> bool:
+        """The fused KIVI decode gate: config flag on, both cache sides
+        group-affine in the KIVI layout (K along tokens, V along features)
+        and no quantization on the attention sites."""
+        if not self.config.use_fused_kivi:
+            return False
+        if kcfg.k_spec is None or kcfg.v_spec is None:
+            return False
+        if kcfg.k_spec.ch_axis != 2 or kcfg.v_spec.ch_axis != 3:
             return False
         return self._attention_sites_clear()
 

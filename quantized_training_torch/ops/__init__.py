@@ -10,12 +10,17 @@ The submodules keep their names (``ops.flash_attention`` is the module);
 import the wrappers from them.
 """
 
-from . import (adam8bit_step, affine_storage, flash_attention,
-               int_kv_attention, quantize_elemwise, quantized_matmul)
+from . import (adam8bit_step, affine_storage, flash_attention, int8_matmul,
+               int_kv_attention, kivi_attention, mx_storage, posit_storage,
+               quantize_elemwise, quantized_matmul)
 
 # kernel (as chip_smoke.py's table names it) -> (wrapper, counter attribute)
 KERNEL_COUNTERS = {
     "affine_w4_matmul": (affine_storage.affine_matmul, "launches"),
+    "affine_dequant": (affine_storage.dequant_planes, "launches"),
+    "mx_storage_matmul": (mx_storage.mx_matmul, "launches"),
+    "posit_storage_matmul": (posit_storage.posit_matmul, "launches"),
+    "kivi_decode": (kivi_attention.kivi_decode_attention, "launches"),
     "flash_attn_fwd": (flash_attention.flash_attention, "launches"),
     "flash_attn_fwd_two_pass": (flash_attention.flash_attention,
                                 "two_pass_launches"),

@@ -28,9 +28,10 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "QtFormat", "build", "load",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("adam8bit_step", "affine_w4_matmul", "flash_attn_bwd",
-                  "flash_attn_fwd", "int_kv_decode", "quantize_elemwise",
-                  "quantized_matmul")
+KERNEL_SOURCES = ("adam8bit_step", "affine_dequant", "affine_w4_matmul",
+                  "flash_attn_bwd", "flash_attn_fwd", "int_kv_decode",
+                  "kivi_decode", "mx_storage_matmul", "posit_storage_matmul",
+                  "quantize_elemwise", "quantized_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,15 +1,22 @@
-"""Group-affine quantized weight storage (W4A16): weights live in device
-memory as bit-packed 4-bit codes + per-group scale/zero-point, and the GEMM
-dequantizes them on the fly (``csrc/affine_w4_matmul.cu``).
+"""Group-affine quantized weight storage (W4A16, W2A16): weights live in
+device memory as bit-packed 4- or 2-bit codes + per-group scale/zero-point,
+and the GEMM dequantizes them on the fly (``csrc/affine_w4_matmul.cu``).
 
 Layout: *int32 words, consecutive along K*.  Word ``r`` of column ``n``
-holds the codes of original rows ``r*8 + p`` (p = 0..7) in bit field p,
-each stored *centered* (c - 8) as a 4-bit two's-complement field, so that a
-shift-left / arithmetic-shift-right pair sign-extends it.  ``sf``/``zp`` are
+holds the codes of original rows ``r*per + p`` (per = 32/nbits, p =
+0..per-1) in bit field p, each stored *centered* (c - 2^(nbits-1)) as an
+nbits-wide two's-complement field, so that a shift-left /
+arithmetic-shift-right pair sign-extends it.  ``sf``/``zp`` are
 (K/group, N) float32; words never straddle groups (``group`` must be a
-multiple of 8).  The dequantized values reproduce the
-``uint4,qs=group_wise_affine,bs=G,ax=0`` fake-quant bit for bit
+multiple of per).  The dequantized values reproduce the
+``uint{nbits},qs=group_wise_affine,bs=G,ax=0`` fake-quant bit for bit
 (reference: fake_quantize.py:150-180).
+
+``w2x4`` stores the w2 codes in the w4 word layout
+(:func:`expand_w2_words_to_w4`, zero points shifted by +6), so the nbits=4
+GEMM computes the same products.  :func:`dequant_planes` is the streaming
+dequant to plane-major bf16 (``csrc/affine_dequant.cu``), with the matching
+activation permutation :func:`_plane_major_x`.
 """
 
 import ctypes
@@ -24,7 +31,25 @@ from ..quantize.ops import expand_scale
 from . import _cuda
 
 __all__ = ["affine_spec", "pack_affine_weights", "plane_pack",
-           "affine_matmul", "affine_matmul_plain"]
+           "expand_w2_words_to_w4", "affine_matmul", "affine_matmul_plain",
+           "dequant_planes", "dequant_planes_plain"]
+
+
+def expand_w2_words_to_w4(packed2: torch.Tensor) -> torch.Tensor:
+    """(K/16, N) int32 w2 words -> (K/8, N) int32 w4 words holding the same
+    centered w2 code values in 4-bit two's-complement fields: rows p < 8 of
+    w2 word r land in w4 word 2r field p, rows p >= 8 in word 2r+1 field
+    p-8.  Consumed by the nbits=4 GEMM with zero points pre-shifted by +6:
+    (zp + 6 - 8) * sf == (zp - 2) * sf."""
+    kp2, N = packed2.shape
+    even = torch.zeros((kp2, N), dtype=torch.int32, device=packed2.device)
+    odd = torch.zeros_like(even)
+    for p in range(8):
+        c_lo = (packed2 << (32 - 2 * (p + 1))) >> 30       # rows p
+        c_hi = (packed2 << (32 - 2 * (p + 9))) >> 30       # rows p + 8
+        even |= (c_lo & 0xF) << (4 * p)
+        odd |= (c_hi & 0xF) << (4 * p)
+    return torch.stack([even, odd], dim=1).reshape(kp2 * 2, N)
 
 
 def affine_spec(nbits: int, group_size: int) -> QuantizationSpec:
@@ -111,18 +136,18 @@ def _lib():
     if lib.affine_w4_matmul.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.affine_w4_matmul.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                         vp]
+                                         ci, vp]
         lib.affine_w4_matmul.restype = ci
     return lib
 
 
 def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
-    """y = x @ dequant(packed); x (M, K), packed (K/8, N) int32, qparams
-    (K/group_size, N) float32.
+    """y = x @ dequant(packed); x (M, K), packed (K/per, N) int32 (per =
+    32/nbits), qparams (K/group_size, N) float32.
 
     CPU tensors take :func:`affine_matmul_plain`; CUDA tensors launch
-    ``csrc/affine_w4_matmul.cu`` (bf16 x and output, nbits=4), and anything
-    the kernel does not take raises.
+    ``csrc/affine_w4_matmul.cu`` (bf16 x and output, nbits 4 or 2), and
+    anything the kernel does not take raises.
     """
     if x.device.type == "cpu":
         return affine_matmul_plain(x, packed, sf, zp, nbits=nbits,
@@ -132,14 +157,15 @@ def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
     if x.device.type != "cuda":
         raise ValueError(f"affine_matmul: no kernel for device {x.device}")
     problems = []
-    if nbits != 4:
-        problems.append(f"nbits={nbits} (the kernel is w4)")
+    if nbits not in (4, 2):
+        problems.append(f"nbits={nbits} (the kernel takes 4 or 2)")
+    per = 32 // nbits if nbits in (4, 2) else 8
     if x.dtype != torch.bfloat16:
         problems.append(f"x {x.dtype} (needs bf16)")
     if packed.dtype != torch.int32 or sf.dtype != torch.float32 \
             or zp.dtype != torch.float32:
         problems.append("codes int32 and qparams float32 expected")
-    if kp * 8 != K or group_size % 8 or K % group_size \
+    if kp * per != K or group_size % per or K % group_size \
             or tuple(sf.shape) != (K // group_size, N) \
             or tuple(zp.shape) != (K // group_size, N):
         problems.append(f"shapes x {tuple(x.shape)} codes "
@@ -156,10 +182,90 @@ def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
     lib = _lib()
     err = lib.affine_w4_matmul(
         x.data_ptr(), packed.data_ptr(), sf.data_ptr(), zp.data_ptr(),
-        y.data_ptr(), M, K, N, group_size, _cuda.stream_ptr(x.device))
+        y.data_ptr(), M, K, N, group_size, nbits,
+        _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "affine_w4_matmul")
     affine_matmul.launches += 1
     return y
 
 
 affine_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Streaming dequant to plane-major bf16 (kernel 6)
+# ---------------------------------------------------------------------------
+
+def _plane_major_x(x: torch.Tensor, kp: int, per: int) -> torch.Tensor:
+    """Permute activation columns to match :func:`dequant_planes`' row
+    order: column p*kp + r multiplies original row r*per + p."""
+    M = x.shape[0]
+    return x.reshape(M, kp, per).transpose(1, 2).reshape(M, kp * per)
+
+
+def dequant_planes_plain(packed, sf, zp, nbits, group_size,
+                         out_dtype=torch.bfloat16):
+    """The plain version: :func:`_dequant_planes` rounded once to
+    ``out_dtype``, rows permuted to plane-major order (row p*kp + r is
+    original row r*per + p)."""
+    per = 32 // nbits
+    kp, N = packed.shape
+    w = _dequant_planes(packed, sf, zp, nbits, group_size).to(out_dtype)
+    return w.reshape(kp, per, N).transpose(0, 1).reshape(kp * per, N)
+
+
+def _dequant_lib():
+    lib = _cuda.load("affine_dequant")
+    if lib.affine_dequant_planes.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.affine_dequant_planes.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                              vp]
+        lib.affine_dequant_planes.restype = ci
+    return lib
+
+
+def dequant_planes(packed, sf, zp, nbits, group_size):
+    """Packed words (K/per, N) -> (K, N) bf16 in plane-major row order:
+    output row ``p * (K/per) + r`` is original row ``r * per + p``, bit for
+    bit :func:`_dequant_planes` rounded to bf16.  ``_plane_major_x(x)
+    @ dequant_planes(...)`` is the original product up to the order of the
+    f32 sums.  Off the model path: the GEMM takes any K itself.
+
+    CPU tensors take :func:`dequant_planes_plain`; CUDA tensors launch
+    ``csrc/affine_dequant.cu``, and anything it does not take raises.
+    """
+    if packed.device.type == "cpu":
+        return dequant_planes_plain(packed, sf, zp, nbits, group_size)
+    if packed.device.type != "cuda":
+        raise ValueError(f"dequant_planes: no kernel for device "
+                         f"{packed.device}")
+    kp, N = packed.shape
+    problems = []
+    if nbits not in (4, 2):
+        problems.append(f"nbits={nbits} (4 or 2)")
+    per = 32 // nbits if nbits in (4, 2) else 8
+    K = kp * per
+    if packed.dtype != torch.int32 or sf.dtype != torch.float32 \
+            or zp.dtype != torch.float32:
+        problems.append("codes int32 and qparams float32 expected")
+    if group_size % per or K % group_size \
+            or tuple(sf.shape) != (K // group_size, N) \
+            or tuple(zp.shape) != (K // group_size, N):
+        problems.append(f"shapes codes {tuple(packed.shape)} sf "
+                        f"{tuple(sf.shape)} group {group_size}")
+    if any(not t.is_contiguous() or t.device != packed.device
+           for t in (packed, sf, zp)):
+        problems.append("tensors must be contiguous and on one device")
+    if problems:
+        raise ValueError("dequant_planes kernel: " + "; ".join(problems))
+    out = torch.empty((K, N), dtype=torch.bfloat16, device=packed.device)
+    lib = _dequant_lib()
+    err = lib.affine_dequant_planes(
+        packed.data_ptr(), sf.data_ptr(), zp.data_ptr(), out.data_ptr(), K,
+        N, group_size, nbits, _cuda.stream_ptr(packed.device))
+    _cuda.check(lib, err, "affine_dequant_planes")
+    dequant_planes.launches += 1
+    return out
+
+
+dequant_planes.launches = 0

@@ -14,14 +14,16 @@ llm_utils.py:115-243, llm_utils.py:295-499).
 
 Layouts (head-major cache, see serving/kv_cache.py):
   q               (B, H, D)
-  k/v codes       (B, KV, P//8, D) int32, token-planar packed int4
+  k/v codes       (B, KV, P//8, D) int32, token-planar packed int4, or
+                  (B, KV, P, D) int8
   k/v scale       (B, KV, 1, P) f32 -- per-token scalar scales
   k/v residual    (B, KV, R, D) bf16
   main_len/res_len (B,) int32
 
-This slice ports the form serving runs: ``bits=4, int_dots=False,
-k_transposed=False``.  The int8 codes, integer dots and the transposed-K
-layout come later and raise.
+Ported: the forms serving runs, ``bits`` 4 or 8 with bf16 dots and
+untransposed K (``int_dots=False, k_transposed=False``).  The integer dots
+and the transposed-K layout are on no model path (the LLaMA decode always
+passes False) and raise.
 """
 
 import ctypes
@@ -39,7 +41,10 @@ NEG_INF = -2.0 ** 30
 
 def _unpack_planar(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """(..., Pw, D) packed int32 words -> (..., P, D) int32 signed codes, in
-    token order (plane s of word t' is token s * Pw + t')."""
+    token order (plane s of word t' is token s * Pw + t'); int8 codes
+    (bits 8) are returned as they are."""
+    if bits == 8:
+        return codes.to(torch.int32)
     per = 32 // bits
     planes = [(codes << (32 - bits * (s + 1))) >> (32 - bits)
               for s in range(per)]
@@ -47,7 +52,8 @@ def _unpack_planar(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
-                        main_len, res_len, *, scale: float) -> torch.Tensor:
+                        main_len, res_len, *, scale: float,
+                        bits: int = 4) -> torch.Tensor:
     """The plain version, rounding where the kernel rounds: q * scale to
     bf16, p * vs and the residual p to bf16 before their f32-accumulated
     products."""
@@ -58,8 +64,8 @@ def int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
     R = k_res.shape[2]
     f32, bf16 = torch.float32, torch.bfloat16
     qb = (q.to(f32).reshape(B, KV, G, D) * scale).to(bf16).to(f32)
-    kc = _unpack_planar(k_codes, 4).to(f32)                  # (B, KV, P, D)
-    vc = _unpack_planar(v_codes, 4).to(f32)
+    kc = _unpack_planar(k_codes, bits).to(f32)               # (B, KV, P, D)
+    vc = _unpack_planar(v_codes, bits).to(f32)
     s_main = torch.matmul(qb, kc.transpose(-1, -2)) * k_scale.to(f32)
     t_idx = torch.arange(P, device=q.device)
     s_main = torch.where(t_idx < main_len.reshape(B, 1, 1, 1), s_main,
@@ -83,7 +89,7 @@ def _lib():
     lib = _cuda.load("int_kv_decode")
     if lib.int_kv_decode.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.int_kv_decode.argtypes = [vp] * 13 + [ci] * 6 + [ctypes.c_float,
+        lib.int_kv_decode.argtypes = [vp] * 13 + [ci] * 7 + [ctypes.c_float,
                                                               vp]
         lib.int_kv_decode.restype = ci
         lib.int_kv_num_splits.argtypes = [ci, ci]
@@ -96,23 +102,25 @@ def int_kv_decode_attention(
     *, bits: int = 4, int_dots: bool = False, k_transposed: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """One decode step of attention over the two-tier int4 cache; returns
-    (B, H, D) in q's dtype.
+    """One decode step of attention over the two-tier int4 or int8 cache;
+    returns (B, H, D) in q's dtype.
 
     CPU tensors take :func:`int_kv_decode_plain`; CUDA tensors launch the
     kernel, and anything it does not take raises.
     """
-    if bits != 4 or int_dots or k_transposed:
+    if bits not in (4, 8):
+        raise ValueError(f"int_kv_decode_attention: bits={bits} (4 or 8)")
+    if int_dots or k_transposed:
         raise NotImplementedError(
-            "int_kv_decode_attention: only bits=4, int_dots=False, "
-            "k_transposed=False is ported; the int8 variants come later")
+            "int_kv_decode_attention: the integer dots and the transposed-K "
+            "layout are on no model path and are not ported")
     B, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale,
                                    k_res, v_res, main_len, res_len,
-                                   scale=scale)
+                                   scale=scale, bits=bits)
     KV = k_codes.shape[1]
     P = k_scale.shape[-1]
     R = k_res.shape[2]
@@ -122,12 +130,14 @@ def int_kv_decode_attention(
     if q.dtype != torch.bfloat16 or k_res.dtype != torch.bfloat16 \
             or v_res.dtype != torch.bfloat16:
         problems.append("q and the residual ring must be bf16")
-    if k_codes.dtype != torch.int32 or v_codes.dtype != torch.int32 \
+    code_dtype = torch.int32 if bits == 4 else torch.int8
+    if k_codes.dtype != code_dtype or v_codes.dtype != code_dtype \
             or k_scale.dtype != torch.float32 \
             or v_scale.dtype != torch.float32 \
             or main_len.dtype != torch.int32 or res_len.dtype != torch.int32:
-        problems.append("codes and lengths int32, scales float32 expected")
-    code_shape = (B, KV, P // 8, D)
+        problems.append(f"codes {code_dtype}, lengths int32 and scales "
+                        "float32 expected")
+    code_shape = (B, KV, P // 8 if bits == 4 else P, D)
     if H != KV or D != 128 or P % 8 or tuple(k_codes.shape) != code_shape \
             or tuple(v_codes.shape) != code_shape \
             or tuple(k_scale.shape) != (B, KV, 1, P) \
@@ -156,7 +166,7 @@ def int_kv_decode_attention(
     err = lib.int_kv_decode(
         *(t.data_ptr() for t in tensors), m_part.data_ptr(),
         l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(),
-        B, H, KV, D, P, R, float(scale), _cuda.stream_ptr(q.device))
+        B, H, KV, D, P, R, bits, float(scale), _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "int_kv_decode")
     int_kv_decode_attention.launches += 1
     return out

@@ -154,11 +154,14 @@ class ContinuousBatchingEngine:
         padded[0, :S] = torch.as_tensor(ids, dtype=torch.int64)
         logits, small = self.model(padded.to(self.device), use_cache=True,
                                    prompt_len=S)
-        # write the prefilled slot into the batched caches, in place
+        # write the prefilled slot into the batched caches, in place (the
+        # per-token symmetric cache's (1,) zero-point placeholders are
+        # shared by every slot)
         for big, one in zip(self.caches, small):
-            for name in ("k_codes", "k_scale", "v_codes", "v_scale",
-                         "k_res", "v_res"):
-                getattr(big, name)[b].copy_(getattr(one, name)[0])
+            for name in big._fields[:-2]:
+                buf = getattr(big, name)
+                if buf.dim() > 1:
+                    buf[b].copy_(getattr(one, name)[0])
             big.main_len[b] = one.main_len
             big.res_len[b] = 0
         # last *real* token's logits, sampled with this request's params

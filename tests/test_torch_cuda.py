@@ -1,6 +1,8 @@
 """What the port does on an NVIDIA GPU and nowhere else: the flash backward
-under error taps runs kernels 2-4 and never their plain versions, and an
-unpacked 8-bit Adam leaf raises where its kernel is missing.  Marked
+under error taps runs kernels 2-4 and never their plain versions, an
+unpacked 8-bit Adam leaf raises where its kernel is missing, and the
+storage GEMMs, the KIVI decode and the dequant stream launch their kernels
+and agree with their plain versions.  Marked
 ``cuda``: without a card each test skips.  This file imports no JAX, so on
 a card's machine without JAX it runs as
 
@@ -12,7 +14,11 @@ import torch
 
 from quantized_training_torch.numerics import quantize_fn
 from quantized_training_torch.ops import adam8bit_step
+from quantized_training_torch.ops import affine_storage as aff
 from quantized_training_torch.ops import flash_attention as fa
+from quantized_training_torch.ops import int8_matmul, kivi_attention, \
+    mx_storage, posit_storage
+from quantized_training_torch.serving import kv_cache as kvc
 from quantized_training_torch.training import Adam8bit
 
 pytestmark = pytest.mark.cuda
@@ -67,3 +73,99 @@ def test_unpacked_leaf_raises_on_cuda(cuda_device):
     odd.grad = torch.ones_like(odd)
     with pytest.raises(NotImplementedError, match="kernel 13"):
         opt.step()
+
+
+def _launches(fn, call):
+    before = fn.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["mx8", "posit8", "w2a16", "w2x4"])
+def test_storage_gemm_launches_and_matches_plain(cuda_device, fmt):
+    """Each storage GEMM launches its kernel once and agrees with its plain
+    version on the same inputs (1e-4 + 1e-2*|plain|, chip_smoke.py's
+    bound), at decode and prefill row counts."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn((512, 192), generator=gen, device=cuda_device) / 512 ** .5
+    if fmt == "mx8":
+        p = mx_storage.pack_mx_weights(w, block_size=64)
+        fn, plain = mx_storage.mx_matmul, mx_storage.mx_matmul_plain
+        kw = dict(block_size=64)
+    elif fmt == "posit8":
+        p = (posit_storage.pack_posit_weights(w.bfloat16()),)
+        fn, plain = posit_storage.posit_matmul, posit_storage.posit_matmul_plain
+        kw = {}
+    else:
+        c, sf, zp = aff.pack_affine_weights(w, 2, 64)
+        nbits = 2
+        if fmt == "w2x4":
+            c, zp, nbits = aff.expand_w2_words_to_w4(c), zp + 6, 4
+        p = (c, sf, zp)
+        fn, plain = aff.affine_matmul, aff.affine_matmul_plain
+        kw = dict(nbits=nbits, group_size=64)
+    for M in (8, 70):
+        x = torch.randn((M, 512), generator=gen,
+                        device=cuda_device).bfloat16()
+        got = _launches(fn, lambda: fn(x, *p, **kw))
+        want = plain(x, *p, **kw)
+        assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                              rtol=1e-2)
+
+
+def test_dequant_planes_bit_equal_on_cuda(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    w = torch.randn((1024, 96), generator=gen, device=cuda_device)
+    for nbits in (4, 2):
+        p = aff.pack_affine_weights(w, nbits, 64)
+        got = _launches(aff.dequant_planes,
+                        lambda: aff.dequant_planes(*p, nbits, 64))
+        want = aff.dequant_planes_plain(*p, nbits, 64)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("bits,pack", [(2, True), (4, True), (2, False)])
+def test_kivi_decode_launches_and_matches_plain(cuda_device, bits, pack):
+    """The fused KIVI decode at the CPU tests' geometry (H=4, KV=2, D=64)
+    against its plain version (2e-2 + 2e-2*|plain|, chip_smoke.py's
+    bound)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    B, H, KV, D, P, R = 2, 4, 2, 64, 64, 8
+    spec = "uint{},qs=group_wise_affine,bs=32,ax={}"
+    cfg = kvc.KVCacheConfig.kivi(P, R, spec.format(bits, -2),
+                                 spec.format(bits, -1), pack)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=cuda_device).bfloat16()
+
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, KV, D,
+                                             device=cuda_device),
+                              cfg, rnd(B, P, KV, D), rnd(B, P, KV, D),
+                              length=40)
+    lens = (torch.tensor([40, 17], dtype=torch.int32, device=cuda_device),
+            torch.tensor([3, R], dtype=torch.int32, device=cuda_device))
+    args = (rnd(B, H, D), *cache[:6], rnd(B, KV, R, D), rnd(B, KV, R, D),
+            *lens)
+    bk = cfg._pack_bits(cfg.k_spec)
+    fn = kivi_attention.kivi_decode_attention
+    got = _launches(fn, lambda: fn(*args, bits_k=bk, bits_v=bk))
+    want = kivi_attention.kivi_decode_plain(*args, bits_k=bk, bits_v=bk,
+                                            scale=D ** -0.5)
+    assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_w8a8_integer_dot_exact_on_cuda(cuda_device):
+    """torch._int_mm with the rows padded: the same result as the exact CPU
+    product, for a decode-sized M."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w = torch.randn((256, 64), generator=gen, device=cuda_device)
+    codes, ws = int8_matmul.pack_int8_weights(w)
+    for M in (3, 40):
+        x = torch.randn((M, 256), generator=gen, device=cuda_device)
+        got = int8_matmul.w8a8_matmul(x, codes, ws, out_dtype=torch.float32)
+        want = int8_matmul.w8a8_matmul(x.cpu(), codes.cpu(), ws.cpu(),
+                                       out_dtype=torch.float32)
+        assert torch.equal(got.cpu(), want)

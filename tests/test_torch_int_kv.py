@@ -136,9 +136,12 @@ def test_decode_matches_jax_kernel(res_len):
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("kw", [dict(bits=8), dict(int_dots=True),
+@pytest.mark.parametrize("kw", [dict(bits=8, int_dots=True),
+                                dict(int_dots=True),
                                 dict(k_transposed=True)])
 def test_unported_variants_raise(kw):
+    """The integer dots and the transposed-K layout are on no model path
+    and raise, at either code width."""
     _, _, _, tc = _both_prefill(P)
     q = torch.zeros((B, KV, D), dtype=torch.bfloat16)
     lens = torch.zeros((B,), dtype=torch.int32)
