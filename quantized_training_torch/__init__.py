@@ -14,10 +14,16 @@ offline weight folding, flash attention with rounded probabilities and
 output, the elementwise rounding and fused quantize-matmul kernels; and the
 posit8 QAT train step -- the flash backward with its error taps, the train
 step, losses and checkpoints, and 8-bit Adam with its fused packed kernel
-(``training/``).
+(``training/``); and BERT fine-tuning -- the BERT family with LoRA
+adapters, HF checkpoint conversion, the reference's command-line qspec
+flags, and 8-bit Adam's unpacked kernel.
 """
 
-from .convert import adam8bit_state_from_jax, params_from_jax, random_params
+from .cli import add_qspec_args, quant_config_from_args
+from .convert import (adam8bit_state_from_jax, bert_random_params,
+                      params_from_jax, random_params)
+from .models import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
+                     BertForSequenceClassification, BertModel, convert_bert)
 from .models.llama import LlamaConfig, LlamaForCausalLM, fuse_qkv_params
 from .qspec import QScheme, QuantizationSpec
 from .numerics import quantize_fn
@@ -29,8 +35,11 @@ from .serving.generate import generate
 from .serving.kv_cache import KVCacheConfig
 
 __all__ = [
+    "BertConfig", "BertForMaskedLM", "BertForQuestionAnswering",
+    "BertForSequenceClassification", "BertModel",
     "ContinuousBatchingEngine", "FUSION_LADDER", "KVCacheConfig",
-    "adam8bit_state_from_jax",
+    "adam8bit_state_from_jax", "add_qspec_args", "bert_random_params",
+    "convert_bert", "quant_config_from_args",
     "LlamaConfig", "LlamaForCausalLM", "OpCategory", "QConfig", "QScheme",
     "QuantConfig", "QuantizationSpec", "SamplingParams", "build_storage",
     "fake_quantize", "fold_quantized_weights", "fuse_qkv_params", "generate",

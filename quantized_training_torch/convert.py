@@ -17,7 +17,11 @@ packages can step from one non-zero state.
 ``random_params`` builds seeded random weights directly on the device,
 leaf by leaf, packing each eligible kernel as soon as it exists, so the
 dense float32 model never exists whole (the 7B lm_head, 0.5 GB in f32, is
-the largest transient).
+the largest transient).  ``bert_random_params`` does the same for a BERT
+model (dense kernels, LoRA adapters where the config asks for them).
+
+``params_from_jax`` serves both families: the BERT tree's module names
+(``layer_0``, ``attention_self``, ...) are the port's attribute names.
 """
 
 import math
@@ -26,6 +30,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from .models.bert import BertConfig, BertForSequenceClassification
 from .models.layers import Embed, QDense, QRMSNorm
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .quantize.config import QuantConfig
@@ -33,8 +38,8 @@ from .quantize.storage import _pack_kernel
 from .serving.kv_cache import QuantizedKVCache
 from .utils import resolve_device
 
-__all__ = ["adam8bit_state_from_jax", "cache_from_jax", "params_from_jax",
-           "random_params"]
+__all__ = ["adam8bit_state_from_jax", "bert_random_params", "cache_from_jax",
+           "params_from_jax", "random_params"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -130,4 +135,32 @@ def random_params(cfg: LlamaConfig, fmt: Optional[str] = "w4a16",
                 mod.embedding.shape, generator=gen, device=device) * 0.02
         elif isinstance(mod, QRMSNorm):
             out[f"{name}.scale"] = torch.ones(mod.scale.shape, device=device)
+    return out
+
+
+@torch.no_grad()
+def bert_random_params(cfg: BertConfig, qconfig: Optional[QuantConfig] = None,
+                       seed: int = 0, device="cuda"
+                       ) -> Dict[str, torch.Tensor]:
+    """Seeded random weights for ``BertForSequenceClassification(cfg,
+    qconfig)``, as the reference initializes them: kernels ~ N(0,
+    1/fan_in), embeddings and ``lora_a`` ~ N(0, 0.02^2), ``lora_b`` and
+    biases zero, LayerNorm scales one.  Load with
+    ``model.load_state_dict(params)``."""
+    device = resolve_device(device)
+    skeleton = BertForSequenceClassification(cfg, qconfig, device="meta")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for name, p in skeleton.named_parameters():
+        kind = name.rsplit(".", 1)[-1]
+        if kind == "kernel":
+            t = torch.randn(p.shape, generator=gen, device=device) / math.sqrt(
+                p.shape[0])
+        elif kind in ("embedding", "lora_a"):
+            t = torch.randn(p.shape, generator=gen, device=device) * 0.02
+        elif kind == "scale":
+            t = torch.ones(p.shape, device=device)
+        else:                                   # bias, lora_b
+            t = torch.zeros(p.shape, device=device)
+        out[name] = t
     return out

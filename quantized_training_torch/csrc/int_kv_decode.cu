@@ -3,24 +3,34 @@
 // ring.
 //   q (B, H, D) bf16; k/v codes (B, KV, P/8, D) int32, token-planar: bit
 //   field s of word row t' holds the 4-bit two's-complement code of token
-//   s*(P/8) + t'; or (B, KV, P, D) int8 codes, one row per token; ks/vs
-//   (B, KV, 1, P) f32 per-token scales; k/v residual
-//   (B, KV, R, D) bf16; main_len/res_len (B,) int32.  Out (B, H, D) bf16.
-//   qb = bf16(q * scale);  s_main[t] = (qb . c_k[t]) * ks[t], t < main_len;
-//   s_res[r] = qb . k_res[r], r < res_len;  one softmax over both tiers;
-//   out = (sum_t bf16(p_t * vs[t]) c_v[t] + sum_r bf16(p_r) v_res[r]) / l.
+//   s*(P/8) + t'; or (B, KV, P, D) int8 codes, one row per token; or, for
+//   K in the K^T layout, (B, KV, D, P) int8; ks/vs (B, KV, 1, P) f32
+//   per-token scales; k/v residual (B, KV, R, D) bf16; main_len/res_len
+//   (B,) int32.  Out (B, H, D) bf16.
+//   bf16 dots: qb = bf16(q * scale);  s_main[t] = (qb . c_k[t]) * ks[t],
+//   t < main_len;  s_res[r] = qb . k_res[r], r < res_len;  one softmax over
+//   both tiers;  out = (sum_t bf16(p_t * vs[t]) c_v[t]
+//                       + sum_r bf16(p_r) v_res[r]) / l.
+//   integer dots: qs = max(max|q * scale|, 1e-30) / 127 over the (group, D)
+//   tile, q8 = rint(q * scale / qs); s_main[t] = (q8 . c_k[t]) * (ks[t] * qs)
+//   exact in integers; after the softmax, ps = max(max|p * vs|, 1e-30) / 127
+//   over the whole (group, P) tile, p8 = rint(p * vs / ps);
+//   out = ((p8 . c_v) * ps + sum_r bf16(p_r) v_res[r]) / l.
 //
 // Replaces quantized_training_tpu/ops/pallas/int_kv_attention.py:77
-// (_kernel, reached through int_kv_decode_attention) in the forms serving
-// runs: bits 4 or 8, bf16 dots (int_dots=False), untransposed K.
+// (_kernel, reached through int_kv_decode_attention) in all its forms:
+// bits 4 or 8 with bf16 dots over untransposed K (int_kv_split + merge,
+// below), and the integer-dot and K^T forms at bits 8 (int_kv_tile).
 //
 // What bounds it on an H100: the bytes of the codes, scales and residual
-// ring over 3.35 TB/s (about 88 MB per layer at 8 full slots of LLaMA-2 7B).
-// The TPU grid is one program per (batch, kv head) -- 256 here, too few to
-// keep 132 SMs' memory pipes busy -- so this kernel splits the tokens
-// (flash-decoding): each block takes 256 tokens of the main tier (32 int4
-// word rows, or 256 int8 rows), or 256 rows of the residual ring, for one
-// (batch, kv head), keeps
+// ring over 3.35 TB/s (about 88 MB per layer at 8 full slots of LLaMA-2 7B
+// with int4 codes, 155 MB with int8).
+//
+// The bf16-dot forms over untransposed K: the TPU grid is one program per
+// (batch, kv head) -- 256 here, too few to keep 132 SMs' memory pipes busy
+// -- so int_kv_split splits the tokens (flash-decoding): each block takes
+// 256 tokens of the main tier (32 int4 word rows, or 256 int8 rows), or 256
+// rows of the residual ring, for one (batch, kv head), keeps
 // its scores in shared memory, and writes a partial (max, sum, f32
 // accumulator) per head; a second small kernel merges the partials.  Word
 // rows holding no token below main_len are never read (plane 0 holds the
@@ -28,6 +38,20 @@
 // Each warp reads whole 512-byte word rows (lane j holds d = 4j..4j+3) and
 // sign-extends a field with a left shift of the unsigned word and an
 // arithmetic right shift of its int32 reinterpretation.
+//
+// The integer-dot and K^T forms (int_kv_tile): the reference quantizes
+// p * vs against one scale over the whole tile after the global softmax
+// max, so a token split would round against its own max and give other
+// int8 codes.  So one block takes one (batch, kv head), as the TPU grid
+// does, with all P scores in shared memory (4 bytes a token): it rounds
+// where the reference rounds, and both integer dots are exact, so its
+// codes equal the plain version's but where an exp differs by an ulp at a
+// rounding boundary.  B * KV blocks of 256 threads (256 at the 7B decode
+// shape) are all resident on 132 SMs at once.  Scores: over K^T each thread
+// takes 8 consecutive tokens and walks the D rows (8-byte loads, coalesced
+// across threads); over untransposed K, 8 lanes share a 128-byte row
+// (16 bytes each) and sum with __dp4a.  Values: 8 lanes per 128-byte V
+// row, 16 codes a lane, 4 rows per warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +108,9 @@ __device__ __forceinline__ void load_row(const void* base, size_t row, int D,
   }
 }
 
-// block-wide max and sum over NTHREADS lanes (red holds NWARPS floats)
+// block-wide max and sum over NW warps (red holds NW floats); every
+// thread gets the result
+template <int NW = NWARPS>
 __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -93,10 +119,11 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   __syncthreads();
   float r = red[0];
 #pragma unroll
-  for (int w = 1; w < NWARPS; ++w) r = fmaxf(r, red[w]);
+  for (int w = 1; w < NW; ++w) r = fmaxf(r, red[w]);
   return r;
 }
 
+template <int NW = NWARPS>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   v = warp_sum(v);
   __syncthreads();
@@ -104,7 +131,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float r = 0.f;
 #pragma unroll
-  for (int w = 0; w < NWARPS; ++w) r += red[w];
+  for (int w = 0; w < NW; ++w) r += red[w];
   return r;
 }
 
@@ -327,6 +354,292 @@ __global__ void int_kv_merge(const float* __restrict__ m_part,
   out[bh * D + d] = static_cast<uint16_t>(__float_as_uint(val) >> 16);
 }
 
+// ---- the integer-dot and K^T forms: one block per (batch, kv head) ----
+constexpr int TILE_WARPS = 8;
+constexpr int TILE_THREADS = TILE_WARPS * 32;
+
+__device__ __forceinline__ int sbyte(uint32_t w, int j) {
+  return static_cast<int>(w << (24 - 8 * j)) >> 24;
+}
+
+// G: query heads per kv head; D: head dim.  Dynamic shared memory holds the
+// G*P main scores and the G*R residual scores (f32).
+template <int D, int G, bool INT_DOTS, bool KT>
+__global__ void __launch_bounds__(TILE_THREADS)
+int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
+            const float* __restrict__ ks, const int8_t* __restrict__ vc,
+            const float* __restrict__ vsc, const uint16_t* __restrict__ kr,
+            const uint16_t* __restrict__ vr, const int32_t* __restrict__ main_len,
+            const int32_t* __restrict__ res_len, uint16_t* __restrict__ out,
+            int KV, int P, int R, float scale) {
+  static_assert(D == 128, "8 lanes x 16 bytes cover a row of D int8 codes");
+  constexpr int DL = D / 32;
+  extern __shared__ float dyn[];
+  float* sc = dyn;           // [G][P]: scores, then p * vs (bf16) or p8
+  float* scr = dyn + G * P;  // [G][R]: residual scores, then bf16(p)
+  __shared__ float qb[G][D];
+  __shared__ __align__(16) int8_t q8[G][D];
+  __shared__ float red[TILE_WARPS];
+  __shared__ int acc_i[TILE_WARPS][G][D];
+  __shared__ float acc_f[TILE_WARPS][G][D];
+  __shared__ float acc_r[TILE_WARPS][G][D];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int sub = lane & 7;   // a lane's 16 codes of a 128-byte row
+  const int rsub = lane >> 3; // a warp's 4 rows
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int ml = min(max(main_len[b], 0), P);
+  const int rl = min(max(res_len[b], 0), R);
+  const size_t bk = static_cast<size_t>(b) * KV + kvh;
+
+  // ---- q: q * scale, its bf16 rounding and (integer dots) its int8 codes
+  float qmax = 0.f;
+  float qfv[(G * D + TILE_THREADS - 1) / TILE_THREADS];
+#pragma unroll
+  for (int k = 0; k * TILE_THREADS < G * D; ++k) {
+    const int idx = tid + k * TILE_THREADS;
+    qfv[k] = 0.f;
+    if (idx < G * D) {
+      const float v = __fmul_rn(bf16_to_float(q[bk * G * D + idx]), scale);
+      qfv[k] = v;
+      qb[idx / D][idx % D] = round_bf16(v);
+      qmax = fmaxf(qmax, fabsf(v));
+    }
+  }
+  float qs = 0.f;
+  if (INT_DOTS) {
+    qs = __fdiv_rn(fmaxf(block_max<TILE_WARPS>(qmax, red), 1e-30f), 127.f);
+#pragma unroll
+    for (int k = 0; k * TILE_THREADS < G * D; ++k) {
+      const int idx = tid + k * TILE_THREADS;
+      if (idx < G * D)
+        q8[idx / D][idx % D] = static_cast<int8_t>(
+            static_cast<int>(rintf(__fdiv_rn(qfv[k], qs))));
+    }
+  }
+  __syncthreads();
+
+  // ---- main scores -----------------------------------------------------
+  const float* ksp = ks + bk * P;
+  if (KT) {
+    const int8_t* kb = kc + bk * static_cast<size_t>(D) * P;  // (D, P)
+    for (int c = tid; 8 * c < ml; c += TILE_THREADS) {
+      const int t0 = 8 * c;
+      int ai[G][8];
+      float af[G][8];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ai[g][j] = 0, af[g][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const uint2 w = *reinterpret_cast<const uint2*>(kb + static_cast<size_t>(d) * P + t0);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int code = sbyte(j < 4 ? w.x : w.y, j & 3);
+            if (INT_DOTS) ai[g][j] += static_cast<int>(q8[g][d]) * code;
+            else af[g][j] = __fadd_rn(af[g][j], __fmul_rn(qb[g][d], static_cast<float>(code)));
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int t = t0 + j;
+          if (t < ml)
+            sc[g * P + t] = INT_DOTS
+                ? __fmul_rn(static_cast<float>(ai[g][j]), __fmul_rn(ksp[t], qs))
+                : __fmul_rn(af[g][j], ksp[t]);
+        }
+    }
+  } else {  // untransposed K, integer dots: 8 lanes per row, __dp4a
+    const int8_t* kb = kc + bk * static_cast<size_t>(P) * D;  // (P, D)
+    int qw[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qw[g][j] = reinterpret_cast<const int*>(q8[g])[4 * sub + j];
+    for (int t0 = 4 * warp; t0 < ml; t0 += 4 * TILE_WARPS) {
+      const int t = t0 + rsub;
+      int4 w = make_int4(0, 0, 0, 0);
+      if (t < ml) w = *reinterpret_cast<const int4*>(kb + static_cast<size_t>(t) * D + 16 * sub);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        int a = __dp4a(w.x, qw[g][0], 0);
+        a = __dp4a(w.y, qw[g][1], a);
+        a = __dp4a(w.z, qw[g][2], a);
+        a = __dp4a(w.w, qw[g][3], a);
+        a += __shfl_xor_sync(0xffffffffu, a, 1);
+        a += __shfl_xor_sync(0xffffffffu, a, 2);
+        a += __shfl_xor_sync(0xffffffffu, a, 4);
+        if (sub == 0 && t < ml)
+          sc[g * P + t] = __fmul_rn(static_cast<float>(a), __fmul_rn(ksp[t], qs));
+      }
+    }
+  }
+
+  // ---- residual scores (bf16 dots) ---------------------------------------
+  const uint16_t* krp = kr + bk * R * D;
+  for (int r = warp; r < rl; r += TILE_WARPS) {
+    float kv[DL];
+#pragma unroll
+    for (int j = 0; j < DL; ++j) kv[j] = bf16_to_float(krp[static_cast<size_t>(r) * D + DL * lane + j]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < DL; ++j) a += qb[g][DL * lane + j] * kv[j];
+      a = warp_sum(a);
+      if (lane == 0) scr[g * R + r] = a;
+    }
+  }
+  __syncthreads();
+
+  // ---- one softmax over [main; residual] per query row ---------------------
+  const float* vsp = vsc + bk * P;
+  float l_g[G];
+  float pmax = 0.f;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float mx = NEG_INF;
+    for (int t = tid; t < ml; t += TILE_THREADS) mx = fmaxf(mx, sc[g * P + t]);
+    for (int r = tid; r < rl; r += TILE_THREADS) mx = fmaxf(mx, scr[g * R + r]);
+    const float m = block_max<TILE_WARPS>(mx, red);
+    float sum_m = 0.f, sum_r = 0.f;
+    for (int t = tid; t < ml; t += TILE_THREADS) {
+      const float p = expf(__fsub_rn(sc[g * P + t], m));
+      sum_m += p;
+      const float pv = __fmul_rn(p, vsp[t]);
+      pmax = fmaxf(pmax, fabsf(pv));
+      sc[g * P + t] = INT_DOTS ? pv : round_bf16(pv);
+    }
+    for (int r = tid; r < rl; r += TILE_THREADS) {
+      const float p = expf(__fsub_rn(scr[g * R + r], m));
+      sum_r += p;
+      scr[g * R + r] = round_bf16(p);
+    }
+    const float lm = block_sum<TILE_WARPS>(sum_m, red);
+    l_g[g] = __fadd_rn(lm, block_sum<TILE_WARPS>(sum_r, red));
+  }
+  float ps = 0.f;
+  if (INT_DOTS) {
+    ps = __fdiv_rn(fmaxf(block_max<TILE_WARPS>(pmax, red), 1e-30f), 127.f);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      for (int t = tid; t < ml; t += TILE_THREADS)
+        sc[g * P + t] = rintf(__fdiv_rn(sc[g * P + t], ps));
+  }
+  __syncthreads();
+
+  // ---- weighted values: main tier, 8 lanes per 128-byte row ---------------
+  const int8_t* vb = vc + bk * static_cast<size_t>(P) * D;
+  int vi[G][16];
+  float vf[G][16];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) vi[g][j] = 0, vf[g][j] = 0.f;
+  for (int t = 4 * warp + rsub; t < ml; t += 4 * TILE_WARPS) {
+    const int4 w = *reinterpret_cast<const int4*>(vb + static_cast<size_t>(t) * D + 16 * sub);
+    const uint32_t wv[4] = {static_cast<uint32_t>(w.x), static_cast<uint32_t>(w.y),
+                            static_cast<uint32_t>(w.z), static_cast<uint32_t>(w.w)};
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float pc = sc[g * P + t];
+      const int pi = static_cast<int>(pc);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int code = sbyte(wv[j >> 2], j & 3);
+        if (INT_DOTS) vi[g][j] += pi * code;
+        else vf[g][j] = __fadd_rn(vf[g][j], __fmul_rn(pc, static_cast<float>(code)));
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (INT_DOTS) {
+        vi[g][j] += __shfl_xor_sync(0xffffffffu, vi[g][j], 8);
+        vi[g][j] += __shfl_xor_sync(0xffffffffu, vi[g][j], 16);
+        if (rsub == 0) acc_i[warp][g][16 * sub + j] = vi[g][j];
+      } else {
+        vf[g][j] += __shfl_xor_sync(0xffffffffu, vf[g][j], 8);
+        vf[g][j] += __shfl_xor_sync(0xffffffffu, vf[g][j], 16);
+        if (rsub == 0) acc_f[warp][g][16 * sub + j] = vf[g][j];
+      }
+    }
+
+  // ---- weighted values: residual ring -------------------------------------
+  float ar[G][DL];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < DL; ++j) ar[g][j] = 0.f;
+  const uint16_t* vrp = vr + bk * R * D;
+  for (int r = warp; r < rl; r += TILE_WARPS) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = scr[g * R + r];
+#pragma unroll
+      for (int j = 0; j < DL; ++j)
+        ar[g][j] += p * bf16_to_float(vrp[static_cast<size_t>(r) * D + DL * lane + j]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < DL; ++j) acc_r[warp][g][DL * lane + j] = ar[g][j];
+  __syncthreads();
+
+  for (int idx = tid; idx < G * D; idx += TILE_THREADS) {
+    const int g = idx / D, d = idx % D;
+    float main = 0.f, res = 0.f;
+    if (INT_DOTS) {
+      int a = 0;
+#pragma unroll
+      for (int w = 0; w < TILE_WARPS; ++w) a += acc_i[w][g][d];
+      main = __fmul_rn(static_cast<float>(a), ps);
+    } else {
+#pragma unroll
+      for (int w = 0; w < TILE_WARPS; ++w) main += acc_f[w][g][d];
+    }
+#pragma unroll
+    for (int w = 0; w < TILE_WARPS; ++w) res += acc_r[w][g][d];
+    const float l = l_g[g];
+    const float val = round_bf16(__fdiv_rn(__fadd_rn(main, res), l == 0.f ? 1.f : l));
+    out[bk * G * D + idx] = static_cast<uint16_t>(__float_as_uint(val) >> 16);
+  }
+}
+
+template <int D, int G, bool INT_DOTS, bool KT>
+int launch_tile(int B, int KV, int P, int R, cudaStream_t st, const void* q,
+                const void* kc, const void* ks, const void* vc,
+                const void* vs, const void* kr, const void* vr,
+                const void* ml, const void* rl, void* out, float scale) {
+  auto kern = int_kv_tile<D, G, INT_DOTS, KT>;
+  const size_t smem = static_cast<size_t>(G) * (P + R) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<dim3(KV, B), TILE_THREADS, smem, st>>>(
+      static_cast<const uint16_t*>(q), static_cast<const int8_t*>(kc),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vc),
+      static_cast<const float*>(vs), static_cast<const uint16_t*>(kr),
+      static_cast<const uint16_t*>(vr), static_cast<const int32_t*>(ml),
+      static_cast<const int32_t*>(rl), static_cast<uint16_t*>(out), KV, P, R,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int n_main_splits(int P) {
   return (P + SPLIT_TOKENS - 1) / SPLIT_TOKENS;
 }
@@ -392,6 +705,29 @@ int int_kv_decode(const void* q, const void* k_codes, const void* k_scale,
   int_kv_merge<<<B * H, D, 0, st>>>(mp, lp, ap, static_cast<uint16_t*>(out),
                                     NS, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The integer-dot (int_dots) and K^T (k_transposed) forms at int8 codes:
+// one block per (batch, kv head), no scratch.  k_codes is (B, KV, D, P)
+// when k_transposed, else (B, KV, P, D); D == 128, H == KV, P % 8 == 0,
+// every pointer 16-byte aligned.
+int int_kv_decode_tile(const void* q, const void* k_codes, const void* k_scale,
+                       const void* v_codes, const void* v_scale,
+                       const void* k_res, const void* v_res,
+                       const void* main_len, const void* res_len, void* out,
+                       int B, int H, int KV, int D, int P, int R, int int_dots,
+                       int k_transposed, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D != 128 || H != KV || P % 8) return static_cast<int>(cudaErrorInvalidValue);
+#define QT_TILE(ID, KT)                                                       \
+  return launch_tile<128, 1, ID, KT>(B, KV, P, R, st, q, k_codes, k_scale,    \
+                                     v_codes, v_scale, k_res, v_res,          \
+                                     main_len, res_len, out, scale)
+  if (int_dots && k_transposed) QT_TILE(true, true);
+  if (int_dots) QT_TILE(true, false);
+  if (k_transposed) QT_TILE(false, true);
+#undef QT_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,0 +1,17 @@
+"""Models with quantization sites: LLaMA, BERT, and their building blocks."""
+
+from .bert import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
+                   BertForSequenceClassification, BertModel)
+from .hf_loader import convert_bert
+from .layers import (Embed, FakeQuant, NoNorm, QDense, QLayerNorm,
+                     QLoRADense, QRMSNorm, QSoftmax, QuantMixin,
+                     bwd_quantize)
+from .llama import LlamaConfig, LlamaForCausalLM, fuse_qkv_params
+
+__all__ = [
+    "BertConfig", "BertForMaskedLM", "BertForQuestionAnswering",
+    "BertForSequenceClassification", "BertModel", "Embed", "FakeQuant",
+    "LlamaConfig", "LlamaForCausalLM", "NoNorm", "QDense", "QLayerNorm",
+    "QLoRADense", "QRMSNorm", "QSoftmax", "QuantMixin", "bwd_quantize",
+    "convert_bert", "fuse_qkv_params",
+]

@@ -27,13 +27,14 @@ from ..ops.int8_matmul import w8a8_matmul
 from ..ops.mx_storage import mx_matmul
 from ..ops.posit_storage import posit_matmul
 from ..qspec import QScheme, QuantizationSpec
+from ..numerics import quantize_fn
 from ..quantize.config import OpCategory, QuantConfig
-from ..quantize.fake_quant import fake_quantize
+from ..quantize.fake_quant import fake_quantize, straight_through
 from ..quantize.storage import _eligible, storage_shapes
 from ..utils import resolve_device
 
-__all__ = ["FakeQuant", "QuantMixin", "QDense", "QLayerNorm", "QRMSNorm",
-           "NoNorm", "QSoftmax", "Embed", "bwd_quantize"]
+__all__ = ["FakeQuant", "QuantMixin", "QDense", "QLoRADense", "QLayerNorm",
+           "QRMSNorm", "NoNorm", "QSoftmax", "Embed", "bwd_quantize"]
 
 
 class FakeQuant(nn.Module):
@@ -192,8 +193,36 @@ def _require_f32_reduction():
             "allow_bf16_reduced_precision_reduction = False first")
 
 
+def _param(shape, device, fill=0.0):
+    """A float32 parameter (frozen until a train step makes it trainable)."""
+    return nn.Parameter(torch.full(shape, fill, dtype=torch.float32,
+                                   device=device), requires_grad=False)
+
+
+def _dense_product(x, kernel, dtype):
+    """x @ kernel in the compute dtype, summed in f32 (the reference's
+    ``jnp.dot(..., preferred_element_type=f32)``): on CUDA the bf16
+    operands go to ``torch.matmul``, on the CPU they are widened to f32."""
+    if x.device.type == "cpu":
+        y = torch.matmul(x.to(dtype).to(torch.float32),
+                         kernel.to(torch.float32))
+    else:
+        if x.device.type == "cuda":
+            _require_f32_reduction()
+        y = torch.matmul(x.to(dtype), kernel)
+    return y.to(dtype)
+
+
+def _lora_delta(a, b, alpha: float, rank: int):
+    """(alpha / rank) * (a @ b) in the compute dtype of ``a`` and ``b``:
+    the product summed in f32 and rounded, then scaled by the bf16-rounded
+    factor, as the reference's bf16 arrays compute it."""
+    prod = _dense_product(a, b, a.dtype)
+    return torch.tensor(alpha / rank, dtype=a.dtype, device=a.device) * prod
+
+
 class QDense(nn.Module, QuantMixin):
-    """Bias-free dense layer, y = x @ kernel with kernel (in, out).
+    """Dense layer, y = x @ kernel (+ bias) with kernel (in, out).
 
     With ``qconfig.storage_fmt`` set and an eligible shape, the kernel is
     not a param at all: the layer holds the packed ``codes`` (and
@@ -209,6 +238,14 @@ class QDense(nn.Module, QuantMixin):
     is off (PyTorch turns it on by default), so a CUDA forward raises
     unless the caller has turned it off.
 
+    When the config's LoRA targets match ``path`` (reference:
+    modules/qat/lora.py:34-55), the layer also holds ``lora_a`` (in, r) and
+    ``lora_b`` (r, out); each is fake-quantized at the weight spec, and the
+    kernel becomes ``kernel + (alpha / r) * lora_a @ lora_b`` before its
+    own weight site.  ``use_bias`` adds a float32 ``bias``, quantized with
+    a derived scale where the config has a bias spec
+    (:meth:`_maybe_quant_bias`).
+
     ``forward(x, skip_input_quant=True)`` means the caller already applied
     this layer's forward input rounding (a shared q/k/v site, or the flash
     kernel's output epilogue): the value is already rounded, but the
@@ -216,6 +253,7 @@ class QDense(nn.Module, QuantMixin):
     """
 
     def __init__(self, in_features: int, features: int, *,
+                 use_bias: bool = True,
                  qconfig: Optional[QuantConfig] = None, path: str = "",
                  dtype=torch.bfloat16, device="cuda"):
         super().__init__()
@@ -227,15 +265,19 @@ class QDense(nn.Module, QuantMixin):
         self.storage = fmt is not None and _eligible(
             f"{path}.kernel", (in_features, features), fmt, self.group)
         self.storage_fmt = fmt if self.storage else None
+        self.lora = (not self.storage and qconfig is not None
+                     and qconfig.lora_matches(path))
         if self.storage:
             for name, (shape, dt) in storage_shapes(
                     fmt, in_features, features, self.group).items():
                 self.register_buffer(name, torch.zeros(
                     shape, dtype=dt, device=device))
         else:
-            self.kernel = nn.Parameter(torch.zeros(
-                (in_features, features), dtype=torch.float32, device=device),
-                requires_grad=False)
+            self.kernel = _param((in_features, features), device)
+        if self.lora:
+            self.lora_a = _param((in_features, qconfig.lora_rank), device)
+            self.lora_b = _param((qconfig.lora_rank, features), device)
+        self.bias = _param((features,), device) if use_bias else None
 
     def _input_site(self, x, skip_input_quant: bool):
         if not skip_input_quant:
@@ -264,6 +306,36 @@ class QDense(nn.Module, QuantMixin):
                              nbits=2 if fmt == "w2a16" else 4,
                              group_size=self.group)
 
+    def _site_scale(self, site: str, spec):
+        """The delayed scale of this layer's ``site`` observer, or None."""
+        if spec is None or spec.qscheme != QScheme.PER_TENSOR_SYMMETRIC:
+            return None
+        sites = self._modules.get("quant_sites")
+        fq = sites[site] if sites is not None and site in sites else None
+        return None if fq is None or fq.state is None else fq.state.scale
+
+    def _maybe_quant_bias(self, bias: torch.Tensor) -> torch.Tensor:
+        """Derived-scale bias quantization, scale = act_scale *
+        weight_scale (reference DerivedQuantizationSpec,
+        quantize_pt2e.py:145-152), where the config has a bias spec and
+        both the input and the weight observers of this layer are
+        per-tensor delayed scaling; the scales are those observers' states
+        after this call's observation."""
+        cfg = self.qconfig
+        if cfg is None:
+            return bias
+        bspec = cfg.bias_spec(self.path)
+        if bspec is None:
+            return bias
+        s_a = self._site_scale("linear_pre_process_0", cfg.activation_spec(
+            self.path, "linear", OpCategory.GEMM, 0))
+        s_w = self._site_scale("weight_fake_quant", cfg.weight_spec(self.path))
+        if s_a is None or s_w is None:
+            return bias
+        scale = (s_a * s_w).to(bias.dtype)
+        qfn = quantize_fn(bspec.dtype)
+        return straight_through(lambda b: qfn(b / scale) * scale)(bias)
+
     def forward(self, x: torch.Tensor,
                 skip_input_quant: bool = False) -> torch.Tensor:
         if self.storage:
@@ -271,18 +343,63 @@ class QDense(nn.Module, QuantMixin):
             lead = x.shape[:-1]
             x2 = x.to(self.dtype).reshape(-1, self.in_features).contiguous()
             y = self._storage_matmul(x2)
-            return y.to(self.dtype).reshape(*lead, self.features)
-        kernel = self.kernel.to(self.dtype)
-        x = self._input_site(x, skip_input_quant)
-        kernel = self.weight_fake_quant(kernel)
-        if x.device.type == "cpu":
-            y = torch.matmul(x.to(self.dtype).to(torch.float32),
-                             kernel.to(torch.float32))
+            y = y.to(self.dtype).reshape(*lead, self.features)
         else:
-            if x.device.type == "cuda":
-                _require_f32_reduction()
-            y = torch.matmul(x.to(self.dtype), kernel)
-        return y.to(self.dtype)
+            kernel = self.kernel.to(self.dtype)
+            x = self._input_site(x, skip_input_quant)
+            if self.lora:
+                cfg = self.qconfig
+                a, b = self.lora_a.to(self.dtype), self.lora_b.to(self.dtype)
+                wspec = cfg.weight_spec(self.path)
+                if wspec is not None:
+                    a = self._fake_quant("lora_a_fake_quant", wspec)(a)
+                    b = self._fake_quant("lora_b_fake_quant", wspec)(b)
+                kernel = kernel + _lora_delta(a, b, cfg.lora_alpha,
+                                              cfg.lora_rank)
+            kernel = self.weight_fake_quant(kernel)
+            y = _dense_product(x, kernel, self.dtype)
+        if self.bias is not None:
+            y = y + self._maybe_quant_bias(self.bias).to(self.dtype)
+        return y
+
+
+class QLoRADense(nn.Module, QuantMixin):
+    """LoRA-adapted dense layer with the reference's QAT semantics
+    (modules/qat/lora.py:34-55): ``lora_a`` and ``lora_b`` each
+    fake-quantized with the weight spec, then the merged weight
+    ``kernel + (alpha / r) * lora_a @ lora_b`` fake-quantized again before
+    the product; the input is quantized at the linear GEMM site."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 lora_rank: int = 8, lora_alpha: float = 16.0,
+                 use_bias: bool = True,
+                 qconfig: Optional[QuantConfig] = None, path: str = "",
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        self.qconfig, self.path, self.dtype = qconfig, path, dtype
+        self.kernel = _param((in_features, features), device)
+        self.lora_a = _param((in_features, lora_rank), device)
+        self.lora_b = _param((lora_rank, features), device)
+        self.bias = _param((features,), device) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = self.kernel.to(self.dtype)
+        a, b = self.lora_a.to(self.dtype), self.lora_b.to(self.dtype)
+        cfg = self.qconfig
+        wspec = cfg.weight_spec(self.path) if cfg is not None else None
+        if wspec is not None:
+            a = self._fake_quant("lora_a_fake_quant", wspec)(a)
+            b = self._fake_quant("lora_b_fake_quant", wspec)(b)
+        merged = kernel + _lora_delta(a, b, self.lora_alpha, self.lora_rank)
+        if wspec is not None:
+            merged = self._fake_quant("weight_fake_quant", wspec)(merged)
+        x = self.quant_input(x, "linear", OpCategory.GEMM, 0)
+        y = _dense_product(x, merged, self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
 
 
 class QRMSNorm(nn.Module, QuantMixin):

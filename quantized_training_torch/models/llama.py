@@ -179,17 +179,17 @@ class LlamaAttention(nn.Module, QuantMixin):
         self.config, self.qconfig, self.path = cfg, qconfig, path
         H, KV, D = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
         dense = lambda feat, name: QDense(
-            cfg.hidden_size, feat, qconfig=qconfig, path=f"{path}.{name}",
-            dtype=cfg.torch_dtype, device=device)
+            cfg.hidden_size, feat, use_bias=False, qconfig=qconfig,
+            path=f"{path}.{name}", dtype=cfg.torch_dtype, device=device)
         if cfg.fused_qkv:
             self.qkv_proj = dense(KV * (H // KV + 2) * D, "qkv_proj")
         else:
             self.q_proj = dense(H * D, "q_proj")
             self.k_proj = dense(KV * D, "k_proj")
             self.v_proj = dense(KV * D, "v_proj")
-        self.o_proj = QDense(H * D, cfg.hidden_size, qconfig=qconfig,
-                             path=f"{path}.o_proj", dtype=cfg.torch_dtype,
-                             device=device)
+        self.o_proj = QDense(H * D, cfg.hidden_size, use_bias=False,
+                             qconfig=qconfig, path=f"{path}.o_proj",
+                             dtype=cfg.torch_dtype, device=device)
         self.softmax = QSoftmax(qconfig=qconfig, path=f"{path}.softmax",
                                 dtype=cfg.torch_dtype)
 
@@ -414,8 +414,8 @@ class LlamaMLP(nn.Module, QuantMixin):
         super().__init__()
         self.config, self.qconfig, self.path = cfg, qconfig, path
         dense = lambda fin, fout, name: QDense(
-            fin, fout, qconfig=qconfig, path=f"{path}.{name}",
-            dtype=cfg.torch_dtype, device=device)
+            fin, fout, use_bias=False, qconfig=qconfig,
+            path=f"{path}.{name}", dtype=cfg.torch_dtype, device=device)
         I, Hd = cfg.intermediate_size, cfg.hidden_size
         self.gate_proj = dense(Hd, I, "gate_proj")
         self.up_proj = dense(Hd, I, "up_proj")
@@ -526,7 +526,8 @@ class LlamaForCausalLM(nn.Module, QuantMixin):
         self.model = LlamaModel(config, qconfig, "model", device)
         if not config.tie_word_embeddings:
             self.lm_head = QDense(config.hidden_size, config.vocab_size,
-                                  qconfig=qconfig, path="lm_head",
+                                  use_bias=False, qconfig=qconfig,
+                                  path="lm_head",
                                   dtype=config.torch_dtype, device=device)
 
     @property

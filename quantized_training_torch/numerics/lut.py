@@ -66,7 +66,9 @@ class QuantFn:
             return self.plain(x)
         if x.device.type == "cuda" and self.fmt is not None:
             from ..ops.quantize_elemwise import quantize_elemwise as launch
-            return launch(x, self.fmt)
+            # the kernel walks a flat array: a strided view (an einsum's
+            # permuted product, a sliced token) is copied first
+            return launch(x.contiguous(), self.fmt)
         raise ValueError(f"quantize_fn({self.dtype!r}): no rounding kernel "
                          f"for a tensor on {x.device}")
 

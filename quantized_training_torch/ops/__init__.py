@@ -4,7 +4,8 @@ tensors, launches its kernel for CUDA tensors and counts the launches in
 ``<wrapper>.launches`` (the two-pass flash kernel in
 ``flash_attention.two_pass_launches``; the launches of either flash form
 that also saved the logsumexp for the backward in
-``flash_attention.lse_launches``).
+``flash_attention.lse_launches``; the integer-dot and K^T forms of the
+int-KV decode in ``int_kv_decode_attention.tile_launches``).
 
 The submodules keep their names (``ops.flash_attention`` is the module);
 import the wrappers from them.
@@ -30,7 +31,10 @@ KERNEL_COUNTERS = {
     "flash_bwd_dkv": (flash_attention.flash_bwd_dkv, "launches"),
     "adam8bit_packed": (adam8bit_step.fused_adam8bit_update_packed,
                         "launches"),
+    "adam8bit_unpacked": (adam8bit_step.fused_adam8bit_update, "launches"),
     "int_kv_decode": (int_kv_attention.int_kv_decode_attention, "launches"),
+    "int_kv_decode_tile": (int_kv_attention.int_kv_decode_attention,
+                           "tile_launches"),
     "quantize_elemwise": (quantize_elemwise.quantize_elemwise, "launches"),
     "quantized_matmul": (quantized_matmul.quantized_matmul, "launches"),
 }

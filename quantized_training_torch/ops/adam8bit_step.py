@@ -1,5 +1,12 @@
-"""The fused 8-bit Adam moment update over int32-word-packed moments
-(``csrc/adam8bit_step.cu``; reference: ops/pallas/adam8bit_step.py).
+"""The fused 8-bit Adam moment update (``csrc/adam8bit_step.cu``;
+reference: ops/pallas/adam8bit_step.py), for unpacked and for
+int32-word-packed moments.
+
+Unpacked layout: the leaf flattened and zero-padded to (nb, 256) blocks of
+256 elements, m as int8 codes (nb, 256), v as uint8 codes of sqrt(v)
+(nb, 256), one f32 scale per row (nb,).  The update is the reference's CPU
+path of an unpacked leaf (training/optim8bit.py:258-265); the kernel is
+held bit for bit to :func:`fused_adam8bit_update_plain`.
 
 Packed layout (bit-compatible with the reference): moments are (nb, 256)
 blocks of 256 elements, nb a multiple of the 512-row tile.  Within tile t,
@@ -27,6 +34,7 @@ from . import _cuda
 __all__ = ["BLOCK", "TILE_ROWS", "packable_rows", "pack_moment_rows",
            "unpack_moment_rows", "pack_scale_rows", "unpack_scale_rows",
            "adam_constants", "div_rn", "sqrt_rn",
+           "fused_adam8bit_update", "fused_adam8bit_update_plain",
            "fused_adam8bit_update_packed",
            "fused_adam8bit_update_packed_plain"]
 
@@ -109,6 +117,24 @@ def adam_constants(b1: float, b2: float, eps: float):
                  for x in (b1, 1.0 - b1, b2, 1.0 - b2, eps))
 
 
+def fused_adam8bit_update_plain(g2d, m_codes, m_scale, v_codes, v_scale,
+                                bc1: float, bc2: float, *, b1: float,
+                                b2: float, eps: float):
+    """Kernel 13's plain version: dequantize, update, requantize, on any
+    device, in blocks of ``g2d.shape[1]`` elements (the kernel's 256, or
+    any other block size of the optimizer).  Returns (update, m_codes,
+    m_scale, v_codes, v_scale)."""
+    from ..training.optim8bit import (_dequantize_signed, _dequantize_sqrt,
+                                      _quantize_signed, _quantize_sqrt)
+    b1f, omb1, b2f, omb2, epsf = adam_constants(b1, b2, eps)
+    m = b1f * _dequantize_signed(m_codes, m_scale, g2d.shape) + omb1 * g2d
+    v = b2f * _dequantize_sqrt(v_codes, v_scale, g2d.shape) + omb2 * g2d * g2d
+    upd = div_rn(m, bc1) / (sqrt_rn(div_rn(v, bc2)) + epsf)
+    mc, ms = _quantize_signed(m, g2d.shape[1])
+    vc, vs = _quantize_sqrt(v, g2d.shape[1])
+    return upd, mc, ms, vc, vs
+
+
 def fused_adam8bit_update_packed_plain(g2d, m_words, m_scale, v_words,
                                        v_scale, bc1: float, bc2: float, *,
                                        b1: float, b2: float, eps: float):
@@ -134,9 +160,57 @@ def _lib():
     lib = _cuda.load("adam8bit_step")
     if lib.adam8bit_packed.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.adam8bit_packed.argtypes = [vp] * 10 + [ci] + [cf] * 7 + [vp]
-        lib.adam8bit_packed.restype = ci
+        for fn in (lib.adam8bit_packed, lib.adam8bit_unpacked):
+            fn.argtypes = [vp] * 10 + [ci] + [cf] * 7 + [vp]
+            fn.restype = ci
     return lib
+
+
+def _outputs(name, g2d, state, want):
+    """Check the operands against ``want`` ((tensor, dtype, shape) each)
+    and allocate the kernel's outputs, (update, *state) alike."""
+    if g2d.dim() != 2 or any(
+            t.dtype != dt or tuple(t.shape) != sh or not t.is_contiguous()
+            or t.device != g2d.device or t.data_ptr() % 16
+            for t, dt, sh in want):
+        raise ValueError(
+            f"{name} kernel: want contiguous, 16-byte aligned tensors on one "
+            "device of " + ", ".join(f"{dt} {sh}" for _, dt, sh in want)
+            + "; got " + ", ".join(f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                                   for t, _, _ in want))
+    return (torch.empty_like(g2d),) + tuple(torch.empty_like(t)
+                                            for t in state)
+
+
+def fused_adam8bit_update(g2d, m_codes, m_scale, v_codes, v_scale,
+                          bc1: float, bc2: float, *, b1: float, b2: float,
+                          eps: float):
+    """Kernel 13 (``_kernel``): one 8-bit Adam step of an unpacked leaf.
+    g2d (nb, 256) f32 (the leaf flattened, zero-padded), m codes (nb, 256)
+    int8, v codes (nb, 256) uint8, scales (nb,) f32; ``bc1``/``bc2`` are the
+    f32 bias corrections.  Returns new tensors (update, m_codes, m_scale,
+    v_codes, v_scale).  CPU tensors take
+    :func:`fused_adam8bit_update_plain`."""
+    state = (m_codes, m_scale, v_codes, v_scale)
+    kw = dict(b1=b1, b2=b2, eps=eps)
+    if g2d.device.type == "cpu":
+        return fused_adam8bit_update_plain(g2d, *state, bc1, bc2, **kw)
+    nb = g2d.shape[0]
+    outs = _outputs("fused_adam8bit_update", g2d, state, [
+        (g2d, torch.float32, (nb, BLOCK)), (m_codes, torch.int8, (nb, BLOCK)),
+        (m_scale, torch.float32, (nb,)), (v_codes, torch.uint8, (nb, BLOCK)),
+        (v_scale, torch.float32, (nb,))])
+    lib = _lib()
+    err = lib.adam8bit_unpacked(
+        g2d.data_ptr(), *(t.data_ptr() for t in state),
+        *(t.data_ptr() for t in outs), nb, *adam_constants(b1, b2, eps),
+        float(bc1), float(bc2), _cuda.stream_ptr(g2d.device))
+    _cuda.check(lib, err, "adam8bit_unpacked")
+    fused_adam8bit_update.launches += 1
+    return outs
+
+
+fused_adam8bit_update.launches = 0
 
 
 def fused_adam8bit_update_packed(g2d, m_words, m_scale, v_words, v_scale,
@@ -147,32 +221,23 @@ def fused_adam8bit_update_packed(g2d, m_words, m_scale, v_words, v_scale,
     scales (nb/64, 256) f32; ``bc1``/``bc2`` are the f32 bias corrections.
     Returns new tensors (update, m_words, m_scale, v_words, v_scale).  CPU
     tensors take :func:`fused_adam8bit_update_packed_plain`."""
+    state = (m_words, m_scale, v_words, v_scale)
     kw = dict(b1=b1, b2=b2, eps=eps)
     if g2d.device.type == "cpu":
-        return fused_adam8bit_update_packed_plain(
-            g2d, m_words, m_scale, v_words, v_scale, bc1, bc2, **kw)
+        return fused_adam8bit_update_packed_plain(g2d, *state, bc1, bc2, **kw)
     nb = g2d.shape[0]
-    want = [(g2d, torch.float32, (nb, BLOCK)),
-            (m_words, torch.int32, (nb // 4, BLOCK)),
-            (m_scale, torch.float32, (nb // 64, BLOCK)),
-            (v_words, torch.int32, (nb // 4, BLOCK)),
-            (v_scale, torch.float32, (nb // 64, BLOCK))]
-    if g2d.dim() != 2 or not packable_rows(nb) or any(
-            t.dtype != dt or tuple(t.shape) != sh or not t.is_contiguous()
-            or t.device != g2d.device or t.data_ptr() % 16
-            for t, dt, sh in want):
-        raise ValueError(
-            "fused_adam8bit_update_packed kernel: want contiguous, 16-byte "
-            "aligned g (nb, 256) f32 with nb % 512 == 0, words (nb/4, 256) "
-            "int32 and scales (nb/64, 256) f32 on one device; got "
-            + ", ".join(f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                        for t, _, _ in want))
-    outs = (torch.empty_like(g2d), torch.empty_like(m_words),
-            torch.empty_like(m_scale), torch.empty_like(v_words),
-            torch.empty_like(v_scale))
+    if not packable_rows(nb):
+        raise ValueError(f"fused_adam8bit_update_packed kernel: nb={nb}, not "
+                         f"a multiple of {TILE_ROWS}")
+    outs = _outputs("fused_adam8bit_update_packed", g2d, state, [
+        (g2d, torch.float32, (nb, BLOCK)),
+        (m_words, torch.int32, (nb // 4, BLOCK)),
+        (m_scale, torch.float32, (nb // 64, BLOCK)),
+        (v_words, torch.int32, (nb // 4, BLOCK)),
+        (v_scale, torch.float32, (nb // 64, BLOCK))])
     lib = _lib()
     err = lib.adam8bit_packed(
-        *(t.data_ptr() for t in (g2d, m_words, m_scale, v_words, v_scale)),
+        g2d.data_ptr(), *(t.data_ptr() for t in state),
         *(t.data_ptr() for t in outs), nb, *adam_constants(b1, b2, eps),
         float(bc1), float(bc2), _cuda.stream_ptr(g2d.device))
     _cuda.check(lib, err, "adam8bit_packed")

@@ -1,8 +1,8 @@
 """Integer-KV decode attention over the two-tier per-token-symmetric cache
 (``csrc/int_kv_decode.cu``).
 
-The main tier stores per-token symmetric int4 codes, so the scales factor
-out of the (P, D) element path:
+The main tier stores per-token symmetric int4 or int8 codes, so the scales
+factor out of the (P, D) element path:
 
     k[t, :] = ks[t] * ck[t, :]  =>  s[h, t] = (q_h . ck[t]) * ks[t]
     v[t, :] = vs[t] * cv[t, :]  =>  o       = (p * vs) @ cv
@@ -14,16 +14,26 @@ llm_utils.py:115-243, llm_utils.py:295-499).
 
 Layouts (head-major cache, see serving/kv_cache.py):
   q               (B, H, D)
-  k/v codes       (B, KV, P//8, D) int32, token-planar packed int4, or
-                  (B, KV, P, D) int8
+  k codes         (B, KV, P//8, D) int32, token-planar packed int4; or
+                  (B, KV, P, D) int8; or, ``k_transposed``, (B, KV, D, P)
+                  int8 (the "K^T cache")
+  v codes         (B, KV, P//8, D) int32 or (B, KV, P, D) int8
   k/v scale       (B, KV, 1, P) f32 -- per-token scalar scales
   k/v residual    (B, KV, R, D) bf16
   main_len/res_len (B,) int32
 
-Ported: the forms serving runs, ``bits`` 4 or 8 with bf16 dots and
-untransposed K (``int_dots=False, k_transposed=False``).  The integer dots
-and the transposed-K layout are on no model path (the LLaMA decode always
-passes False) and raise.
+Forms, as the reference's (``int_kv_attention.py:77 _kernel``; its
+defaults are ``bits=8, int_dots=True, k_transposed=True``):
+  * bf16 dots (``int_dots=False``): ``bf16(q * scale)`` against the codes,
+    ``bf16(p * vs)`` against the V codes, both products accumulated in f32;
+    bits 4 (untransposed only) or 8, K untransposed or transposed;
+  * integer dots (``int_dots=True``, bits 8): q * scale quantized to int8
+    with one scale per (batch, kv head) tile, ``qs = max|q|/127``, the
+    score dot exact in integers times ``ks * qs``; after one softmax over
+    [main; residual], ``p * vs`` quantized to int8 with one scale over the
+    whole (group, P) tile, ``ps = max|p * vs|/127``, its dot with the V
+    codes exact, times ps.
+The residual tier always runs the bf16 dots.
 """
 
 import ctypes
@@ -51,22 +61,54 @@ def _unpack_planar(codes: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.cat(planes, dim=-2)
 
 
+def _check_form(bits: int, int_dots: bool, k_transposed: bool) -> None:
+    if bits not in (4, 8):
+        raise ValueError(f"int_kv_decode_attention: bits={bits} (4 or 8)")
+    if bits == 4 and (int_dots or k_transposed):
+        raise ValueError("int_kv_decode_attention: int4 runs the bf16 dots "
+                         "over untransposed words (as the reference)")
+
+
+def _tile_int8(x: torch.Tensor):
+    """(codes, scale) of one symmetric int8 scale per tile over the last
+    two dims: ``scale = max(max|x|, 1e-30) / 127`` and ``codes =
+    round(x / scale)`` (half to even), with true divisions."""
+    amax = torch.clamp(x.abs().amax(dim=(-2, -1), keepdim=True), min=1e-30)
+    scale = amax / torch.tensor(127.0, dtype=x.dtype, device=x.device)
+    return torch.round(x / scale), scale
+
+
+def _exact_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of integer-valued f32 tensors, exact (f64 holds every partial
+    sum of int8 x int8 products), rounded once to f32 as the reference's
+    int32 -> f32 convert rounds."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.float32)
+
+
 def int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
-                        main_len, res_len, *, scale: float,
-                        bits: int = 4) -> torch.Tensor:
-    """The plain version, rounding where the kernel rounds: q * scale to
-    bf16, p * vs and the residual p to bf16 before their f32-accumulated
-    products."""
+                        main_len, res_len, *, scale: float, bits: int = 8,
+                        int_dots: bool = True,
+                        k_transposed: bool = True) -> torch.Tensor:
+    """The plain version of every form, rounding where the reference's
+    kernel rounds (see the module docstring)."""
+    _check_form(bits, int_dots, k_transposed)
     B, H, D = q.shape
     KV = k_codes.shape[1]
     G = H // KV
     P = k_scale.shape[-1]
     R = k_res.shape[2]
     f32, bf16 = torch.float32, torch.bfloat16
-    qb = (q.to(f32).reshape(B, KV, G, D) * scale).to(bf16).to(f32)
-    kc = _unpack_planar(k_codes, bits).to(f32)               # (B, KV, P, D)
-    vc = _unpack_planar(v_codes, bits).to(f32)
-    s_main = torch.matmul(qb, kc.transpose(-1, -2)) * k_scale.to(f32)
+    qf = q.to(f32).reshape(B, KV, G, D) * scale
+    qb = qf.to(bf16).to(f32)
+    kc = _unpack_planar(k_codes, bits).to(f32)
+    kt = kc if k_transposed else kc.transpose(-1, -2)        # (B, KV, D, P)
+    ks = k_scale.to(f32)
+    if int_dots:
+        q8, qs = _tile_int8(qf)
+        s_main = _exact_dot(q8, kt) * (ks * qs)
+    else:
+        s_main = torch.matmul(qb, kt) * ks
     t_idx = torch.arange(P, device=q.device)
     s_main = torch.where(t_idx < main_len.reshape(B, 1, 1, 1), s_main,
                          torch.full_like(s_main, NEG_INF))
@@ -79,9 +121,14 @@ def int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
     p_main = torch.exp(s_main - m)
     p_res = torch.exp(s_res - m)
     denom = p_main.sum(-1, keepdim=True) + p_res.sum(-1, keepdim=True)
-    pv = (p_main * v_scale.to(f32)).to(bf16).to(f32)
-    acc = torch.matmul(pv, vc) + torch.matmul(p_res.to(bf16).to(f32),
-                                              v_res.to(f32))
+    pv = p_main * v_scale.to(f32)
+    vc = _unpack_planar(v_codes, bits).to(f32)
+    if int_dots:
+        p8, ps = _tile_int8(pv)
+        acc = _exact_dot(p8, vc) * ps
+    else:
+        acc = torch.matmul(pv.to(bf16).to(f32), vc)
+    acc = acc + torch.matmul(p_res.to(bf16).to(f32), v_res.to(f32))
     return (acc / denom).to(q.dtype).reshape(B, H, D)
 
 
@@ -94,33 +141,35 @@ def _lib():
         lib.int_kv_decode.restype = ci
         lib.int_kv_num_splits.argtypes = [ci, ci]
         lib.int_kv_num_splits.restype = ci
+        lib.int_kv_decode_tile.argtypes = [vp] * 10 + [ci] * 8 + [
+            ctypes.c_float, vp]
+        lib.int_kv_decode_tile.restype = ci
     return lib
 
 
 def int_kv_decode_attention(
     q, k_codes, k_scale, v_codes, v_scale, k_res, v_res, main_len, res_len,
-    *, bits: int = 4, int_dots: bool = False, k_transposed: bool = False,
+    *, bits: int = 8, int_dots: bool = True, k_transposed: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """One decode step of attention over the two-tier int4 or int8 cache;
-    returns (B, H, D) in q's dtype.
+    returns (B, H, D) in q's dtype.  The defaults are the reference's.
 
     CPU tensors take :func:`int_kv_decode_plain`; CUDA tensors launch the
-    kernel, and anything it does not take raises.
+    kernel, and anything it does not take raises.  The bf16-dot forms over
+    untransposed codes launch the split kernel (counted in ``launches``);
+    the integer-dot and K^T forms launch the whole-tile kernel (counted in
+    ``tile_launches``).
     """
-    if bits not in (4, 8):
-        raise ValueError(f"int_kv_decode_attention: bits={bits} (4 or 8)")
-    if int_dots or k_transposed:
-        raise NotImplementedError(
-            "int_kv_decode_attention: the integer dots and the transposed-K "
-            "layout are on no model path and are not ported")
+    _check_form(bits, int_dots, k_transposed)
     B, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale,
                                    k_res, v_res, main_len, res_len,
-                                   scale=scale, bits=bits)
+                                   scale=scale, bits=bits, int_dots=int_dots,
+                                   k_transposed=k_transposed)
     KV = k_codes.shape[1]
     P = k_scale.shape[-1]
     R = k_res.shape[2]
@@ -137,9 +186,10 @@ def int_kv_decode_attention(
             or main_len.dtype != torch.int32 or res_len.dtype != torch.int32:
         problems.append(f"codes {code_dtype}, lengths int32 and scales "
                         "float32 expected")
-    code_shape = (B, KV, P // 8 if bits == 4 else P, D)
-    if H != KV or D != 128 or P % 8 or tuple(k_codes.shape) != code_shape \
-            or tuple(v_codes.shape) != code_shape \
+    v_shape = (B, KV, P // 8 if bits == 4 else P, D)
+    k_shape = (B, KV, D, P) if k_transposed else v_shape
+    if H != KV or D != 128 or P % 8 or tuple(k_codes.shape) != k_shape \
+            or tuple(v_codes.shape) != v_shape \
             or tuple(k_scale.shape) != (B, KV, 1, P) \
             or tuple(v_scale.shape) != (B, KV, 1, P) \
             or tuple(k_res.shape) != (B, KV, R, D) \
@@ -148,28 +198,41 @@ def int_kv_decode_attention(
         problems.append(
             f"shapes q {tuple(q.shape)} codes {tuple(k_codes.shape)} "
             f"scales {tuple(k_scale.shape)} res {tuple(k_res.shape)} "
-            f"lens {tuple(main_len.shape)} (the kernel takes D=128, H=KV)")
+            f"lens {tuple(main_len.shape)} (the kernel takes D=128, H=KV, "
+            "P % 8 == 0)")
     tensors = (q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
                main_len, res_len)
-    if any(not t.is_contiguous() or t.device != q.device for t in tensors):
-        problems.append("tensors must be contiguous and on one device")
+    tile = int_dots or k_transposed
+    if any(not t.is_contiguous() or t.device != q.device
+           or (tile and t.data_ptr() % 16) for t in tensors):
+        problems.append("tensors must be contiguous and on one device (and "
+                        "16-byte aligned for the whole-tile kernel)")
     if problems:
         raise ValueError("int_kv_decode_attention kernel: "
                          + "; ".join(problems))
     lib = _lib()
+    out = torch.empty_like(q)
+    stream = _cuda.stream_ptr(q.device)
+    if tile:
+        err = lib.int_kv_decode_tile(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), B, H, KV, D, P,
+            R, int(int_dots), int(k_transposed), float(scale), stream)
+        _cuda.check(lib, err, "int_kv_decode_tile")
+        int_kv_decode_attention.tile_launches += 1
+        return out
     ns = lib.int_kv_num_splits(P, R)
     m_part = torch.empty((B, H, ns), dtype=torch.float32, device=q.device)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((B, H, ns, D), dtype=torch.float32,
                            device=q.device)
-    out = torch.empty_like(q)
     err = lib.int_kv_decode(
         *(t.data_ptr() for t in tensors), m_part.data_ptr(),
         l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(),
-        B, H, KV, D, P, R, bits, float(scale), _cuda.stream_ptr(q.device))
+        B, H, KV, D, P, R, bits, float(scale), stream)
     _cuda.check(lib, err, "int_kv_decode")
     int_kv_decode_attention.launches += 1
     return out
 
 
 int_kv_decode_attention.launches = 0
+int_kv_decode_attention.tile_launches = 0

@@ -10,10 +10,14 @@ of three kinds of state, told apart by the code dtype as in the reference:
   * f32: parameters under ``min_8bit_size`` elements keep exact moments
     (the norms); the scale slot holds a (1,) placeholder;
   * int32: blocks of 256 whose row count is a multiple of 512 (every matmul
-    weight) are packed four codes to a word with lane-tiled scales
-    (ops/adam8bit_step.py); on CUDA the fused kernel updates them;
+    weight of the LLaMA models) are packed four codes to a word with
+    lane-tiled scales (ops/adam8bit_step.py); on CUDA kernel 14 updates
+    them;
   * int8 / uint8: every other 8-bit leaf, codes (nb, block) and scales
-    (nb,).  Its fused kernel is not ported: on CUDA such a leaf raises.
+    (nb,) (BERT's hidden-768 weights, for one); on CUDA kernel 13 updates
+    them.
+The 8-bit leaves' update is the fused kernels' wrapper, which runs the
+plain version for CPU tensors.
 
 :class:`Adam8bit` is ``optax.chain(scale_by_adam8bit, add_decayed_weights,
 scale_by_learning_rate)`` followed by ``apply_updates``, with the same f32
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.adam8bit_step import (adam_constants, div_rn,
+                                 fused_adam8bit_update,
                                  fused_adam8bit_update_packed,
                                  pack_moment_rows, pack_scale_rows,
                                  packable_rows, sqrt_rn)
@@ -132,34 +137,19 @@ class ScaleByAdam8bit:
             state["mu_codes"], state["nu_codes"] = m, v
             return div_rn(m, bc1) / (sqrt_rn(div_rn(v, bc2)) + eps)
         block = self.block_size
-        if kind == torch.int32:                       # packed leaf
-            flat = g.reshape(-1)
-            pad = _pad_len(flat.numel(), block)
-            if pad:
-                flat = torch.nn.functional.pad(flat, (0, pad))
-            g2d = flat.reshape(-1, block).contiguous()
-            upd, mw, ms, vw, vs = fused_adam8bit_update_packed(
-                g2d, state["mu_codes"], state["mu_scale"],
-                state["nu_codes"], state["nu_scale"], bc1, bc2,
-                b1=self.b1, b2=self.b2, eps=self.eps)
-            state.update(mu_codes=mw, mu_scale=ms, nu_codes=vw, nu_scale=vs)
-            return upd.reshape(-1)[:g.numel()].reshape(g.shape)
-        if g.device.type != "cpu":
-            raise NotImplementedError(
-                "Adam8bit: an unpacked 8-bit leaf (row count not a multiple "
-                "of 512) needs the unpacked fused kernel, "
-                "ops/pallas/adam8bit_step.py:48 _kernel (kernel 13), which "
-                "is not ported yet (ROADMAP B13); on the CPU it takes the "
-                "plain path")
-        m = b1 * _dequantize_signed(state["mu_codes"], state["mu_scale"],
-                                    g.shape) + omb1 * g
-        v = b2 * _dequantize_sqrt(state["nu_codes"], state["nu_scale"],
-                                  g.shape) + omb2 * g * g
-        upd = div_rn(m, bc1) / (sqrt_rn(div_rn(v, bc2)) + eps)
-        mc, ms = _quantize_signed(m, block)
-        vc, vs = _quantize_sqrt(v, block)
+        flat = g.reshape(-1)
+        pad = _pad_len(flat.numel(), block)
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        g2d = flat.reshape(-1, block).contiguous()
+        fused = (fused_adam8bit_update_packed if kind == torch.int32
+                 else fused_adam8bit_update)
+        upd, mc, ms, vc, vs = fused(
+            g2d, state["mu_codes"], state["mu_scale"], state["nu_codes"],
+            state["nu_scale"], bc1, bc2, b1=self.b1, b2=self.b2,
+            eps=self.eps)
         state.update(mu_codes=mc, mu_scale=ms, nu_codes=vc, nu_scale=vs)
-        return upd
+        return upd.reshape(-1)[:g.numel()].reshape(g.shape)
 
 
 def scale_by_adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

@@ -1,8 +1,9 @@
 """What the port does on an NVIDIA GPU and nowhere else: the flash backward
 under error taps runs kernels 2-4 and never their plain versions, an
-unpacked 8-bit Adam leaf raises where its kernel is missing, and the
-storage GEMMs, the KIVI decode and the dequant stream launch their kernels
-and agree with their plain versions.  Marked
+unpacked 8-bit Adam leaf launches kernel 13 and a packed one kernel 14,
+the int8 decode attention's integer-dot and K^T forms launch their kernel,
+and the storage GEMMs, the KIVI decode and the dequant stream launch their
+kernels and agree with their plain versions.  Marked
 ``cuda``: without a card each test skips.  This file imports no JAX, so on
 a card's machine without JAX it runs as
 
@@ -58,21 +59,42 @@ def test_error_tapped_flash_backward_runs_the_kernels(cuda_device,
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
 
-def test_unpacked_leaf_raises_on_cuda(cuda_device):
-    """An unpacked 8-bit leaf has no kernel yet (kernel 13): on CUDA the
-    step raises rather than run the plain version; a packed leaf launches
-    kernel 14."""
+def test_unpacked_leaf_launches_kernel_13_on_cuda(cuda_device, monkeypatch):
+    """An unpacked 8-bit leaf (a padded last block) launches kernel 13 and a
+    packed leaf kernel 14, never a plain version; kernel 13's codes,
+    scales and update equal its plain version's bit for bit."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
     odd = torch.nn.Parameter(torch.zeros((100, 77), device=cuda_device))
     packed = torch.nn.Parameter(torch.zeros((512, 256), device=cuda_device))
-    opt = Adam8bit([packed], lr=1e-3)
-    packed.grad = torch.ones_like(packed)
-    before = adam8bit_step.fused_adam8bit_update_packed.launches
-    opt.step()
-    assert adam8bit_step.fused_adam8bit_update_packed.launches == before + 1
-    opt = Adam8bit([odd], lr=1e-3)
-    odd.grad = torch.ones_like(odd)
-    with pytest.raises(NotImplementedError, match="kernel 13"):
-        opt.step()
+    grads = [torch.randn(p.shape, generator=gen, device=cuda_device) * 1e-2
+             for p in (odd, packed)]
+    opt = Adam8bit([odd, packed], lr=1e-3)
+    counters = (adam8bit_step.fused_adam8bit_update,
+                adam8bit_step.fused_adam8bit_update_packed)
+    before = [fn.launches for fn in counters]
+    with monkeypatch.context() as m:
+        for name in ("fused_adam8bit_update_plain",
+                     "fused_adam8bit_update_packed_plain"):
+            m.setattr(adam8bit_step, name, refuse)
+        for _ in range(2):
+            for p, g in zip((odd, packed), grads):
+                p.grad = g.clone()
+            opt.step()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2]
+    st = opt.state[odd]
+    assert st["mu_codes"].dtype == torch.int8
+    g2d = torch.nn.functional.pad(grads[0].reshape(-1),
+                                  (0, -odd.numel() % 256)).reshape(-1, 256)
+    args = (g2d, st["mu_codes"], st["mu_scale"], st["nu_codes"],
+            st["nu_scale"], 0.19, 0.002)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    got = adam8bit_step.fused_adam8bit_update(*args, **kw)
+    want = adam8bit_step.fused_adam8bit_update_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _launches(fn, call):
@@ -169,3 +191,42 @@ def test_w8a8_integer_dot_exact_on_cuda(cuda_device):
         want = int8_matmul.w8a8_matmul(x.cpu(), codes.cpu(), ws.cpu(),
                                        out_dtype=torch.float32)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("int_dots,k_transposed",
+                         [(True, True), (True, False), (False, True)])
+def test_int_kv_tile_forms_launch_and_match_plain(cuda_device, int_dots,
+                                                  k_transposed):
+    """The int8 decode's integer-dot and K^T forms launch the whole-tile
+    kernel and agree with the plain version within chip_smoke.py's bounds
+    (max error 2e-3, at most 0.5% of outputs outside 1e-4 + 1e-3|plain|),
+    at the kernel's geometry (D=128, H=KV) with a short main tier."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    B, H, D, P, R = 2, 4, 128, 256, 16
+    cfg = kvc.KVCacheConfig.int_sym(P, R, 8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=cuda_device).bfloat16()
+
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, H, D,
+                                             device=cuda_device),
+                              cfg, rnd(B, P, H, D), rnd(B, P, H, D))
+    kc = (cache.k_codes.transpose(2, 3).contiguous() if k_transposed
+          else cache.k_codes)
+    lens = (torch.tensor([P, 77], dtype=torch.int32, device=cuda_device),
+            torch.tensor([3, R], dtype=torch.int32, device=cuda_device))
+    args = (rnd(B, H, D), kc, cache.k_scale, cache.v_codes, cache.v_scale,
+            rnd(B, H, R, D), rnd(B, H, R, D), *lens)
+    form = dict(bits=8, int_dots=int_dots, k_transposed=k_transposed)
+    fn = ikv.int_kv_decode_attention
+    before = fn.tile_launches
+    got = fn(*args, **form)
+    torch.cuda.synchronize()
+    assert fn.tile_launches == before + 1
+    want = ikv.int_kv_decode_plain(*args, scale=D ** -0.5, **form)
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= 2e-3
+    assert float((err > 1e-4 + 1e-3 * want.float().abs()).float().mean()) \
+        <= 0.005

@@ -1,6 +1,7 @@
 """The port's int4 per-token-symmetric KV cache and its decode attention
 against the JAX package: cache codes and scales bit-equal, the plain decode
-close to the JAX kernel run by the Pallas interpreter."""
+close to the JAX kernel run by the Pallas interpreter at int4 and bit-equal
+to it in the int8 forms (integer dots, K^T)."""
 
 import numpy as np
 import pytest
@@ -136,16 +137,67 @@ def test_decode_matches_jax_kernel(res_len):
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("kw", [dict(bits=8, int_dots=True),
-                                dict(int_dots=True),
-                                dict(k_transposed=True)])
-def test_unported_variants_raise(kw):
-    """The integer dots and the transposed-K layout are on no model path
-    and raise, at either code width."""
+def _int8_caches(length):
+    """The JAX package's and the port's int8 caches of one prefill (bit-equal,
+    tests/test_torch_kivi.py)."""
+    k, v = _kv(P, seed=9)
+    jcfg = jkv.KVCacheConfig.int_sym(P, R, bits=8)
+    tcfg = tkv.KVCacheConfig.int_sym(P, R, bits=8)
+    jc = jkv.prefill_cache(jkv.init_cache(jcfg, B, KV, D), jcfg,
+                           jnp.asarray(k, jnp.bfloat16),
+                           jnp.asarray(v, jnp.bfloat16), length=length)
+    tc = tkv.prefill_cache(tkv.init_cache(tcfg, B, KV, D, device="cpu"), tcfg,
+                           torch.from_numpy(k).bfloat16(),
+                           torch.from_numpy(v).bfloat16(), length=length)
+    return jc, tc
+
+
+# The reference's defaults (bits=8, int_dots=True, k_transposed=True) and
+# its other two raced int8 forms (tests/test_int_kv.py:127-147): the plain
+# decode bit-equal to the JAX kernel in interpret mode, at GQA group 2 (the
+# integer dots are exact on both sides, and the roundings sit at the same
+# points; the JAX suite's own tolerance against its naive path is 0.12 for
+# the integer dots and 2e-2 for the bf16 dots).
+@pytest.mark.parametrize("int_dots,k_transposed",
+                         [(True, True), (True, False), (False, True)])
+def test_int8_forms_match_jax_kernel(int_dots, k_transposed):
+    jc, tc = _int8_caches(P)
+    H = 4
+    rng = np.random.default_rng(6)
+    k_res, v_res = (rng.standard_normal((B, KV, R, D)).astype(np.float32)
+                    for _ in range(2))
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    ml = np.array([20, 9, P], np.int32)
+    rl = np.array([1, 5, R], np.int32)
+    jkc = jnp.swapaxes(jc.k_codes, 2, 3) if k_transposed else jc.k_codes
+    tkc = (tc.k_codes.transpose(2, 3).contiguous() if k_transposed
+           else tc.k_codes)
+    want = jax_decode(jnp.asarray(q, jnp.bfloat16), jkc, jc.k_scale,
+                      jc.v_codes, jc.v_scale, jnp.asarray(k_res, jnp.bfloat16),
+                      jnp.asarray(v_res, jnp.bfloat16), jnp.asarray(ml),
+                      jnp.asarray(rl), bits=8, int_dots=int_dots,
+                      k_transposed=k_transposed, interpret=True)
+    form = ({} if int_dots and k_transposed
+            else dict(bits=8, int_dots=int_dots, k_transposed=k_transposed))
+    got = int_kv_decode_attention(
+        torch.from_numpy(q).bfloat16(), tkc, tc.k_scale, tc.v_codes,
+        tc.v_scale, torch.from_numpy(k_res).bfloat16(),
+        torch.from_numpy(v_res).bfloat16(), torch.from_numpy(ml),
+        torch.from_numpy(rl), **form)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, D)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_int4_integer_dots_raise():
+    """int4 runs only the bf16 dots over untransposed words, as the
+    reference asserts."""
     _, _, _, tc = _both_prefill(P)
     q = torch.zeros((B, KV, D), dtype=torch.bfloat16)
     lens = torch.zeros((B,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        int_kv_decode_attention(q, tc.k_codes, tc.k_scale, tc.v_codes,
-                                tc.v_scale, tc.k_res, tc.v_res, lens, lens,
-                                **kw)
+    for kw in (dict(int_dots=True, k_transposed=False),
+               dict(int_dots=False, k_transposed=True)):
+        with pytest.raises(ValueError, match="int4"):
+            int_kv_decode_attention(q, tc.k_codes, tc.k_scale, tc.v_codes,
+                                    tc.v_scale, tc.k_res, tc.v_res, lens, lens,
+                                    bits=4, **kw)

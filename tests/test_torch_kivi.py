@@ -248,7 +248,8 @@ def test_int8_decode_matches_jax_kernel(res_len):
                              k_transposed=False, interpret=True)
     got = int_kv_decode_attention(tq, tc.k_codes, tc.k_scale, tc.v_codes,
                                   tc.v_scale, tkr, tvr, torch.from_numpy(ml),
-                                  torch.from_numpy(rl), bits=8)
+                                  torch.from_numpy(rl), bits=8,
+                                  int_dots=False, k_transposed=False)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=2e-2,
                                atol=2e-2)

@@ -2,8 +2,9 @@
 quantizers and the packed word and scale layouts bit for bit, Adam8bit
 against optax ``adam8bit`` over several steps on a tree with an exact, a
 packed and an unpacked leaf (from zero state and from a converted non-zero
-JAX state), weight decay, and ``state_nbytes``.  That an unpacked 8-bit
-leaf raises on CUDA is in tests/test_torch_cuda.py."""
+JAX state), weight decay, and ``state_nbytes``; kernel 13's plain version
+against the reference's XLA path and its Pallas kernel.  That an unpacked 8-bit leaf
+launches kernel 13 on CUDA is in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -184,3 +185,57 @@ def test_state_nbytes_matches_jax():
     opt = Adam8bit(model.parameters(), lr=1e-3)
     _torch_steps(opt, model, grads[:1])
     assert state_nbytes(opt) == jax_nbytes(jstate)
+
+
+def _unpacked_case(n, count, seed=7):
+    """tests/test_optim8bit.py:183's inputs: a leaf of n elements padded to
+    whole blocks, random codes and scales in every row, bias corrections of
+    step ``count``."""
+    rng = np.random.default_rng(seed + n)
+    g = (rng.standard_normal(n) * 0.02).astype(np.float32)
+    nb = (n + jax_optim._pad_len(n, 256)) // 256
+    g2d = np.zeros(nb * 256, np.float32)
+    g2d[:n] = g
+    return (g2d.reshape(nb, 256),
+            rng.integers(-127, 128, (nb, 256)).astype(np.int8),
+            (rng.random(nb) * 1e-3 + 1e-6).astype(np.float32),
+            rng.integers(0, 256, (nb, 256)).astype(np.uint8),
+            (rng.random(nb) * 1e-3 + 1e-6).astype(np.float32),
+            np.float32(1.0 - 0.9 ** count), np.float32(1.0 - 0.999 ** count))
+
+
+@pytest.mark.parametrize("n,count", [(8192, 1), (4096 * 3 + 100, 5)])
+def test_unpacked_plain_matches_jax(n, count):
+    """Kernel 13's plain version (the unpacked leaf's update on padded
+    (nb, 256) blocks) bit for bit against the reference's XLA path of an
+    unpacked leaf (training/optim8bit.py:258-265, op by op), and within
+    the reference's own bounds of its Pallas kernel in interpret mode (one
+    code step, scales to rtol 1e-6, updates to rtol 1e-5: that kernel
+    divides by reciprocals, tests/test_optim8bit.py:171-223)."""
+    g2d, mc, ms, vc, vs, bc1, bc2 = _unpacked_case(n, count)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    got = [t.numpy() for t in step.fused_adam8bit_update_plain(
+        *map(_t, (g2d, mc, ms, vc, vs)), float(bc1), float(bc2), **kw)]
+    jg = jnp.asarray(g2d)
+    m = (0.9 * jax_optim._dequantize_signed(jnp.asarray(mc), jnp.asarray(ms),
+                                            g2d.shape) + (1.0 - 0.9) * jg)
+    v = (0.999 * jax_optim._dequantize_sqrt(jnp.asarray(vc), jnp.asarray(vs),
+                                            g2d.shape)
+         + (1.0 - 0.999) * jg * jg)
+    upd = (m / bc1) / (jnp.sqrt(v / bc2) + 1e-8)
+    want = [upd, *jax_optim._quantize_signed(m, 256),
+            *jax_optim._quantize_sqrt(v, 256)]
+    for name, a, b in zip(("update", "m codes", "m scales", "v codes",
+                           "v scales"), got, want):
+        assert a.dtype == _np(b).dtype, name
+        np.testing.assert_array_equal(a, _np(b), err_msg=name)
+    pallas = [_np(x) for x in jax_step.fused_adam8bit_update(
+        jg, jnp.asarray(mc), jnp.asarray(ms), jnp.asarray(vc),
+        jnp.asarray(vs), jnp.float32(bc1), jnp.float32(bc2), interpret=True,
+        **kw)]
+    for i in (1, 3):
+        assert np.abs(got[i].astype(np.int32)
+                      - pallas[i].astype(np.int32)).max() <= 1
+    for i in (2, 4):
+        np.testing.assert_allclose(got[i], pallas[i], rtol=1e-6)
+    np.testing.assert_allclose(got[0], pallas[0], rtol=1e-5, atol=1e-6)
