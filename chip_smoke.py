@@ -73,7 +73,22 @@ Phases, each of which exits non-zero on failure:
      bytes, a profile (kernel 13's device time), the launch counters of
      one step (98 unpacked and 25 packed 8-bit Adam launches) and a
      falling loss (at lr 3e-6: the recipe's 5e-4 throws random weights'
-     loss up first).  Phases 7-10 run before phase 6.
+     loss up first);
+ 11. the paper's LLM PTQ presets (quantize/presets.py: NF4 / NF4_6
+     microscaled linears, MXINT6 attention matmuls, fp8_e5m3 scales) at 2
+     layers of LLaMA-2 7B width, two presets: every fake-quant site of the
+     card's model fed its CPU counterpart's input and bit-equal to its
+     output, then the logits statistically, each with a planted fault;
+ 12. the six presets and bf16 on the full 32-layer LLaMA-2 7B (f32
+     parameters held once) through sliding_window_perplexity, 4096 seeded
+     tokens in 6 windows of 1024: perplexity, ms per window, tokens/s,
+     peak memory, kernel-11 launches per window (the ``ptq {...}`` line).
+     Phases 7-12 run before phase 6.  Phase 2/3 also holds kernel 11's
+     NormalFloat-codebook and native-cast forms (nf4, nf4_6, nf3, bf16,
+     f16) bit for bit over every bf16 pattern, 2^20 f32 patterns and a 7B
+     weight in bf16 and f32, with planted faults (the f32 codebook, ties
+     to the last entry), and the two-pass flash and the fused
+     quantize-matmul with an NF4 rounding.
 
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -616,6 +631,147 @@ def rounding_kernel_phases(torch, timer):
         max_abs_err=max_err,
         shape="M=4096 K=2048 N=5504 (gate/up), library = rounding kernel + "
               "torch.matmul", **mm_rows[(4096, 2048, 5504)])
+    if failures:
+        fail("kernel disagrees with its plain version: " + ", ".join(failures))
+    return rows
+
+
+# kernel 11's slice-6 forms: the NormalFloat codebooks of the PTQ presets
+# (and nf3) and the native casts
+CODEBOOK_FORMS = ("nf4", "nf4_6", "nf3", "bfloat16", "float16")
+
+
+def nf_faults(torch, x, qfn):
+    """Plain outputs of two faulty NF searches over bf16 ``x``: the float32
+    codebook searched and its entry stored by truncation (what the bf16
+    store would write had the kernel not rounded the codebook), and ties
+    (NaN included) broken toward the last entry."""
+    cb = torch.tensor(qfn.fmt.codebook, dtype=torch.float32, device=x.device)
+    xf = x.float()
+    idx = torch.argmin((cb - xf.clamp(cb.min(), cb.max())[:, None]).abs(), -1)
+    v = torch.where(torch.isnan(xf), cb[0], cb[idx])
+    f32_codebook = (v.view(torch.int32) >> 16).to(torch.int16).view(
+        torch.bfloat16)
+    cbr = cb.to(torch.bfloat16)
+    dist = (cbr - x.clamp(cbr.min(), cbr.max())[:, None]).abs()
+    last = cb.numel() - 1 - torch.argmin(dist.flip(-1), dim=-1)
+    return {"f32 codebook, stored by truncation": f32_codebook,
+            "ties to the last entry": cbr[last]}
+
+
+def codebook_kernel_phases(torch, timer):
+    """Slice 6: kernel 11's NormalFloat-codebook and native-cast forms, bit
+    for bit, with planted faults; and the two kernels that round through
+    the same header inside themselves, the two-pass flash forward (p) and
+    the fused quantize-matmul (x), with an NF4 rounding."""
+    from quantized_training_torch.numerics import quantize_fn
+    from quantized_training_torch.ops import flash_attention as fa
+    from quantized_training_torch.ops import quantize_elemwise as qe
+    from quantized_training_torch.ops import quantized_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    dev, bf16 = "cuda", torch.bfloat16
+    rows, failures = {}, []
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def spread(*shape, dtype):
+        return (randn(*shape) * torch.exp2(randn(*shape) * 3)).to(dtype)
+
+    log("phase 2/3: quantize_elemwise, NormalFloat and cast forms (bit-equal "
+        "to the plain version; NaN lanes compared as NaN)")
+    universe = torch.arange(2 ** 16, dtype=torch.int32, device=dev).to(
+        torch.int16).view(bf16)
+    f32_bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 20,),
+                             dtype=torch.int32, device=dev, generator=gen)
+    # the presets' weights: LLaMA-2 7B's gate/up kernel, in bf16 as the
+    # weight sites round it and in f32
+    w = spread(4096, 11008, dtype=bf16)
+    cases = [("all bf16", universe), ("all bf16 but the first (unaligned, "
+                                      "ragged)", universe[1:]),
+             ("2^20 random f32 patterns", f32_bits.view(torch.float32)),
+             ("(4096, 11008) bf16, a 7B gate/up weight", w),
+             ("(4096, 11008) f32", spread(4096, 11008, dtype=torch.float32))]
+    for dtype in CODEBOOK_FORMS:
+        qfn = quantize_fn(dtype)
+        for name, x in cases:
+            got = qe.quantize_elemwise(x, qfn.fmt)
+            want = qe.quantize_elemwise_plain(x, qfn)
+            torch.cuda.synchronize()
+            n_bad, first = bit_mismatches(got, want)
+            note = ""
+            if x.numel() <= 1 << 20:
+                cpu_bad, _ = bit_mismatches(
+                    want.cpu(), qe.quantize_elemwise_plain(x.cpu(), qfn))
+                note = (f"; the plain version on the card differs from the "
+                        f"CPU's in {cpu_bad}")
+            log(f"  {dtype}, {name}: {n_bad} lanes differ from the plain "
+                f"version{f' (first {first})' if n_bad else ''}{note}")
+            if n_bad:
+                failures.append(f"quantize_elemwise {dtype} {name}")
+        if dtype in ("nf4", "nf4_6", "nf3"):
+            got = qe.quantize_elemwise(universe, qfn.fmt)
+            for fault, faulted in nf_faults(torch, universe, qfn).items():
+                n_bad, _ = bit_mismatches(got, faulted)
+                log(f"  planted fault, {dtype} {fault}: {n_bad} of the bf16 "
+                    f"patterns differ (must be > 0) "
+                    f"{'BREACH' if n_bad else 'missed'}")
+                # nf4_6's codebook is integral: its f32 entries are bf16's
+                if not n_bad and not (dtype == "nf4_6" and "f32" in fault):
+                    failures.append(f"the check misses {dtype} {fault}")
+    del cases
+
+    M, N = w.shape
+    b, by = bound_ms(2 * w.numel() * 2, 0)
+    for dtype in ("nf4", "nf4_6", "float16"):
+        qfn = quantize_fn(dtype)
+        ms = timer(lambda: qe.quantize_elemwise(w, qfn.fmt))
+        plain = timer(lambda: qe.quantize_elemwise_plain(w, qfn))
+        log(f"  time {dtype} ({M}, {N}) bf16: kernel_ms {ms:.4f} plain_ms "
+            f"{plain:.4f} bound_ms {b:.4f} ({by}); no PyTorch call rounds "
+            f"to {'a codebook' if dtype != 'float16' else 'f16 and back'}")
+        label = "cast" if dtype == "float16" else dtype
+        rows[f"quantize_elemwise_{label}"] = dict(
+            name=f"quantize_elemwise_{label}", route="cuda",
+            source="quantized_training_torch/csrc/quantize_elemwise.cu",
+            replaces="quantized_training_tpu/ops/pallas/quantize_elemwise.py:30",
+            max_abs_err=0.0, shape=f"{dtype} bf16 ({M}, {N}) (7B gate/up "
+                                   "weight)",
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by)
+    # beside the posit8 row's shape, in turns
+    x = spread(4096, 5504, dtype=bf16)
+    p8, nf4 = quantize_fn("posit8_1"), quantize_fn("nf4")
+    t = [timer(lambda: qe.quantize_elemwise(x, f.fmt))
+         for f in (p8, nf4, nf4, p8)]
+    log(f"  time (4096, 5504) bf16 in turns: posit8_1 {t[0]:.4f}, nf4 "
+        f"{t[1]:.4f}, nf4 {t[2]:.4f}, posit8_1 {t[3]:.4f} ms")
+    del x, w
+
+    # the two-pass flash with p rounded to nf4: phase 2/3's flash bounds
+    atol, rtol = 6e-3, 2e-2
+    B, H, KV, S, D = 1, 16, 4, 512, 128
+    q = randn(B, H, S, D, dtype=bf16)
+    k = randn(B, KV, S, D, dtype=bf16)
+    v = randn(B, KV, S, D, dtype=bf16)
+    got = fa.flash_attention(q, k, v, p_qfn=nf4)
+    want = fa.naive_attention(q, k, v, scale=1 / math.sqrt(D), p_qfn=nf4)
+    torch.cuda.synchronize()
+    ok, _ = check_close(f"two-pass flash, p rounded to nf4, B={B} H={H} "
+                        f"KV={KV} S=T={S} D={D} (tolerance {atol} + "
+                        f"{rtol}*|plain|)", got, want, atol, rtol)
+    if not ok:
+        failures.append("flash_attn_fwd_two_pass p_qfn=nf4")
+    # the fused quantize-matmul with x rounded to nf4: its own bounds
+    atol, rtol = 1e-4, 1e-2
+    x = randn(1024, 4096, dtype=bf16)
+    wm = randn(4096, 4096, dtype=bf16, scale=1 / 64)
+    ok, _ = check_close(f"quantized_matmul, x rounded to nf4, M=1024 K=4096 "
+                        f"N=4096 (tolerance {atol} + {rtol}*|plain|)",
+                        qmm.quantized_matmul(x, wm, x_qfn=nf4),
+                        qmm.quantized_matmul_plain(x, wm, nf4), atol, rtol)
+    if not ok:
+        failures.append("quantized_matmul x_qfn=nf4")
     if failures:
         fail("kernel disagrees with its plain version: " + ", ".join(failures))
     return rows
@@ -2654,6 +2810,245 @@ def bert_phase(torch, qt):
     return counts
 
 
+# ------------------------------------------------------------ PTQ presets
+PTQ_PRESETS = ("linear4", "matmul4", "linear4_matmul6", "linear4_matmul6_fp8",
+               "linear4_matmul6_fp8_mixhead", "linear4_matmul6_fp8_outlier")
+
+
+def site_calls(torch, feed=None):
+    """Global hooks on every FakeQuant module (the fake-quant sites, created
+    at their first call) that record each call as (module, input, output)
+    on the CPU.  With ``feed`` (such a record from the other side), each
+    call's input is first replaced by the input of the same call there."""
+    from torch.nn.modules import module as nn_module
+    from quantized_training_torch.models.layers import FakeQuant
+    calls = []
+
+    def pre(mod, args):
+        if (isinstance(mod, FakeQuant) and feed is not None
+                and len(calls) < len(feed)):
+            return (feed[len(calls)][1].to(args[0].device),) + args[1:]
+        return None
+
+    def post(mod, args, out):
+        if isinstance(mod, FakeQuant):
+            calls.append((mod, args[0].detach().cpu(), out.detach().cpu()))
+
+    return calls, [nn_module.register_module_forward_pre_hook(pre),
+                   nn_module.register_module_forward_hook(post)]
+
+
+def ptq_parity_phase(torch, qt):
+    """Two presets at LLaMA-2 7B width, 2 layers: the card against the CPU
+    from the same f32 weights and tokens.  First every fake-quant site of
+    the card's model is fed the input its CPU counterpart got, in the same
+    order, and its output must be bit-equal (the MX scales, the division,
+    the NF4 / int6 / fp8_e5m3 roundings and the rescale are the same
+    correctly rounded operations on both).  Then the logits, statistically:
+    cuBLAS and the CPU sum in other orders, and a 4-bit site turns a
+    last-bit difference into a code step.  Planted faults: the card's NF4
+    rounding breaking ties toward the last entry (the sites must differ),
+    and the preset with its activation sites dropped (the logits must
+    breach the bounds)."""
+    from quantized_training_torch.numerics import lut
+    from quantized_training_torch.quantize import build_preset
+    # Bounds per preset, from readings on the H100 (relative error of the
+    # logits, share outside 0.15 + 0.05|plain|).  linear4_matmul6_fp8_mixhead
+    # read 0 and 0: its fp8_e5m3 scales (3 mantissa bits) times 16-level
+    # codes make every GEMM product short enough that the f32 sums are
+    # exact in any order.  linear4 read 0.248 and 0.442: its scales are the
+    # bf16 block amax itself, so a last-bit difference in a block's largest
+    # input (cuBLAS and the CPU sum in other orders) rescales the whole
+    # block and moves codes; the site-level check above carries the weight
+    # there.  The planted fault (the activation sites dropped) read 0.360
+    # and 0.598 for linear4.
+    bounds = {"linear4_matmul6_fp8_mixhead": (1e-3, 1e-3),
+              "linear4": (0.3, 0.5)}
+    log("phase 11: PTQ presets at 2 layers, LLaMA-2 7B width, card vs CPU: "
+        "every fake-quant site bit-equal from shared inputs; logits within "
+        f"(relative error, share outside 0.15 + 0.05*|plain|) {bounds}")
+    cfg = qt.LlamaConfig(num_hidden_layers=2)
+    params = qt.random_params(cfg, None, seed=SEED, device="cuda")
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    ids = torch.randint(0, cfg.vocab_size, (1, 256),
+                        generator=torch.Generator().manual_seed(SEED))
+    log(f"  host CPU: {platform.machine()}, {torch.get_num_threads()} "
+        "threads")
+
+    def reading(name, got, want, max_rel, max_bad):
+        err = (got - want).abs()
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        bad = float((err > 0.15 + 0.05 * want.abs()).float().mean())
+        same = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"  {name}: relative error {rel:.5f}, outside {bad:.6f}, max abs "
+            f"err {float(err.max()):.4f}, greedy tokens equal at {same} of "
+            f"{got.shape[1]}")
+        return rel <= max_rel and bad <= max_bad
+
+    def run(model, dev, feed=None):
+        calls, handles = site_calls(torch, feed)
+        try:
+            logits, _ = model(ids.to(dev))
+        finally:
+            for h in handles:
+                h.remove()
+        names = {m: n for n, m in model.named_modules()}
+        return logits.cpu(), [(names[m], a, o) for m, a, o in calls]
+
+    def differ(a, b):
+        return (a.view(torch.int16) != b.view(torch.int16)) & ~(
+            a.isnan() & b.isnan())
+
+    def lanes(got, ref):
+        return sum(int(differ(g[2], r[2]).sum()) for g, r in zip(got, ref))
+
+    ok = True
+    for preset, (max_rel, max_bad) in bounds.items():
+        qc = build_preset(preset)
+        gpu = qt.LlamaForCausalLM(cfg, qc, device="meta")
+        gpu.load_state_dict(params, assign=True)
+        cpu = qt.LlamaForCausalLM(cfg, qc, device="cpu")
+        cpu.load_state_dict(cpu_params, assign=True)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lc, ref = run(cpu, "cpu")
+            cpu_s = time.perf_counter() - t0
+            _, got = run(gpu, "cuda", ref)
+            order = [c[0] for c in got] == [c[0] for c in ref]
+            n_bad = lanes(got, ref)
+            log(f"  {preset}: {len(got)} site calls on the card, {len(ref)} "
+                f"on the CPU ({cpu_s:.1f} s), same order {order}; outputs "
+                f"differ in {n_bad} lanes (must be 0)")
+            ok = ok and order and n_bad == 0
+            # where the unfed card's site inputs leave the CPU's
+            lg, free = run(gpu, "cuda")
+            drift = [(g[0], float(differ(g[1], r[1]).float().mean()))
+                     for g, r in zip(free, ref)]
+            moved = [(n, round(d, 6)) for n, d in drift if d > 0]
+            log(f"  {preset}: site inputs that differ without feeding: "
+                f"{len(moved)} of {len(drift)}; first {moved[:3]}; last "
+                f"{moved[-1:]}")
+            ok = reading(f"{preset} logits", lg, lc, max_rel,
+                         max_bad) and ok
+            act = {k: (None, v[1]) for k, v in
+                   qt.quantize.QUANTIZATION_CONFIGS[preset].items()}
+            faulted = qt.LlamaForCausalLM(cfg, build_preset(act),
+                                          device="meta")
+            faulted.load_state_dict(params, assign=True)
+            lf, _ = faulted(ids.cuda())
+            if reading(f"planted fault, {preset} without its activation "
+                       "sites", lf.cpu(), lc, max_rel, max_bad):
+                ok = False
+                log("  the logit bounds miss the dropped activation sites")
+            del faulted
+            if preset == "linear4":
+                nf4 = lut.quantize_fn("nf4")
+                keep = nf4.fmt
+                # ties to the last entry: the codebook searched backwards
+                nf4.fmt = lut.RoundFormat("nf", keep.a, keep.b,
+                                          codebook=keep.codebook[::-1])
+                try:
+                    _, bad = run(gpu, "cuda", ref)
+                finally:
+                    nf4.fmt = keep
+                hit = lanes(bad, ref)
+                log(f"  planted fault, NF4 ties to the last entry on the "
+                    f"card: site outputs differ in {hit} lanes (must be > 0) "
+                    f"{'BREACH' if hit else 'missed'}")
+                ok = ok and hit > 0
+                del bad
+        del gpu, cpu, ref, got, free
+        gc.collect()
+    del params, cpu_params
+    if not ok:
+        fail("PTQ presets: the card disagrees with the CPU")
+
+
+def ptq_presets_phase(torch, qt):
+    """The paper's LLM PTQ sweep (quantize/presets.py, the reference's
+    examples/language_modeling/prepare_model.py) on LLaMA-2 7B, 32 layers,
+    full width, f32 parameters from seed 0 (held once and assigned into
+    each preset's model), through sliding_window_perplexity over a seeded
+    stream of 4096 tokens at max_length 1024, stride 512 (6 windows); bf16
+    and each of the six presets: perplexity (of random weights: a check
+    that the path runs and stays finite, not a model quality), median ms
+    per window forward, tokens/s, peak memory, kernel-11 launches per
+    window (all forms, and the NormalFloat form)."""
+    from quantized_training_torch.ops import launch_counts, \
+        reset_launch_counts
+    from quantized_training_torch.quantize import build_preset
+    from quantized_training_torch.utils import sliding_window_perplexity
+    import numpy as np
+    L, stride, n = 1024, 512, 4096
+    log(f"phase 12: PTQ presets, LLaMA-2 7B (32 layers), f32 parameters, "
+        f"{n} seeded tokens, windows of {L} at stride {stride}")
+    cfg = qt.LlamaConfig.llama2_7b()
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    params = qt.random_params(cfg, None, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  parameters: {sum(p.numel() for p in params.values())} f32 "
+        f"values, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, n)
+    result, counts = {}, {}
+    for label in ("bf16",) + PTQ_PRESETS:
+        qc = None if label == "bf16" else build_preset(label)
+        model = qt.LlamaForCausalLM(cfg, qc, device="meta")
+        model.load_state_dict(params, assign=True)
+        window = torch.as_tensor(tokens[:L][None]).cuda()
+        fresh_peak(torch)
+        with torch.no_grad():
+            reset_launch_counts()
+            model(window)
+            torch.cuda.synchronize()
+            c = launch_counts()
+        counts[label] = c
+        times = []
+
+        def forward(ids):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model(ids)[0]
+            end.record()
+            times.append((start, end))
+            return out
+
+        t0 = time.perf_counter()
+        ppl = sliding_window_perplexity(forward, tokens, L, stride,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = sorted(s.elapsed_time(e) for s, e in times)
+        med = ms[len(ms) // 2]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        result[label] = {
+            "perplexity": ppl, "windows": len(ms), "ms_per_window": med,
+            "tokens_per_s": L / med * 1e3, "wall_s": wall, "peak_gib": peak,
+            "kernel11_per_window": c["quantize_elemwise"],
+            "kernel11_nf_per_window": c["quantize_elemwise_nf"]}
+        log(f"  {label}: perplexity {ppl:.4f}, {med:.3f} ms per window "
+            f"(windows {[round(t, 3) for t in ms]}), {L / med * 1e3:.1f} "
+            f"tokens/s, peak {peak:.2f} GiB, kernel 11 {c['quantize_elemwise']}"
+            f" launches per window ({c['quantize_elemwise_nf']} NF)")
+        if label in ("bf16", "linear4_matmul6_fp8_mixhead"):
+            with torch.no_grad():
+                profile(torch, lambda: model(window), med, f"{label} window")
+        if not math.isfinite(ppl) or len(ms) != 6:
+            fail(f"ptq {label}: perplexity {ppl} over {len(ms)} windows")
+        # every preset has an NF4 or NF4_6 element format
+        if qc is not None and c["quantize_elemwise_nf"] == 0:
+            fail(f"ptq {label}: no NF rounding-kernel launch in a window")
+        del model, window
+    del params
+    base = result["bf16"]["ms_per_window"]
+    for label in result:
+        result[label]["vs_bf16"] = base / result[label]["ms_per_window"]
+    log("ptq " + json.dumps(result))
+    return counts
+
+
 def serve_phase(torch, qt, cache="int4", label="serving"):
     """16 greedy requests (prompts 64-2048 tokens, 32 new tokens each)
     through ContinuousBatchingEngine on 8 slots of the 32-layer 7B w4a16
@@ -2817,6 +3212,7 @@ def main():
     timer = Timer(torch)
     rows = kernel_phases(torch, timer)
     rows.update(rounding_kernel_phases(torch, timer))
+    rows.update(codebook_kernel_phases(torch, timer))
     rows.update(training_kernel_phases(torch, timer))
     rows.update(storage_kernel_phases(torch, timer))
     del timer
@@ -2833,6 +3229,8 @@ def main():
     train = train_phase(torch, qt)
     bert_parity_phase(torch, qt)
     bert = bert_phase(torch, qt)
+    ptq_parity_phase(torch, qt)
+    ptq = ptq_presets_phase(torch, qt)
     serving = serve_phase(torch, qt)
     flagship = serve_phase(torch, qt, "kivi2", "serving_kivi")
     # each kernel's launches in the main path that runs it: the flagship
@@ -2853,12 +3251,17 @@ def main():
             "flash_bwd_dq": train, "flash_bwd_dkv": train,
             "adam8bit_packed": train, "adam8bit_unpacked": bert,
             "int_kv_decode_int_dots_kt": bert, "int_kv_decode_int_dots": bert,
-            "int_kv_decode_kt": bert}
+            "int_kv_decode_kt": bert,
+            "quantize_elemwise_nf4": ptq["linear4"],
+            "quantize_elemwise_nf4_6": ptq["linear4_matmul6_fp8_mixhead"],
+            "quantize_elemwise_cast": ptq["linear4_matmul6_fp8_mixhead"]}
     counter = {"int_kv_decode_8bit": "int_kv_decode",
                "affine_w2_matmul": "affine_w4_matmul",
                "int_kv_decode_int_dots_kt": "int_kv_decode_tile",
                "int_kv_decode_int_dots": "int_kv_decode_tile",
-               "int_kv_decode_kt": "int_kv_decode_tile"}
+               "int_kv_decode_kt": "int_kv_decode_tile",
+               "quantize_elemwise_nf4": "quantize_elemwise_nf",
+               "quantize_elemwise_nf4_6": "quantize_elemwise_nf"}
     for key, row in rows.items():
         row["launches"] = path.get(key, ladder)[counter.get(key, key)]
     log(json.dumps({"kernels": list(rows.values())}))

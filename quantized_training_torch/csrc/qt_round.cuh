@@ -1,7 +1,8 @@
 // Elementwise rounding to the package's low-precision formats, as device
 // code shared by the kernels that round: quantize_elemwise.cu (alone),
-// flash_attn_fwd.cu (probabilities and output) and quantized_matmul.cu (the
-// A operand).  One implementation, held bit-equal to the plain PyTorch
+// flash_attn_fwd.cu (probabilities and output), flash_attn_bwd.cu (error
+// taps and the dv probabilities; its wrappers refuse the nf and cast
+// kinds) and quantized_matmul.cu (the A operand).  One implementation, held bit-equal to the plain PyTorch
 // quantizers (quantized_training_torch/numerics/) over all 2^16 bf16
 // patterns on the card.
 //
@@ -13,7 +14,19 @@
 //   fp (fpN_eXmY): the generic mantissa-scaling quantizer with round half
 //     to even and saturation (numerics/fp8.py:quantize_elemwise), every
 //     operation rounded to the input dtype as PyTorch computes bf16 ops;
-//   int / uint: round half to even, saturate.
+//   int / uint: round half to even, saturate;
+//   nf (NormalFloat codebook, at most QT_CODEBOOK entries): clip to the
+//     codebook's range, take |c - x| per entry in the input dtype (for bf16
+//     one f32 subtraction rounded once to bf16, as PyTorch subtracts bf16
+//     tensors), keep the first entry of least distance, NaN -> entry 0
+//     (numerics/normal_float.py:quantize_to_nf).  The host passes the
+//     codebook already rounded to the input dtype, with its least and
+//     largest entries, so no thread converts or scans it twice;
+//   cast (bfloat16 or float16): round to nearest even and back, f16
+//     overflow to inf, NaN -> NaN.
+//
+// A kind this header does not know gives NaN: no value passes through
+// unrounded.
 //
 // Every float add, multiply and divide is an explicit _rn intrinsic, which
 // nvcc never contracts into an FMA, and f32 -> bf16 is __float2bfloat16_rn.
@@ -21,20 +34,28 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
-// Passed by value from Python (ctypes.Structure of the same layout).
+#define QT_CODEBOOK 16
+
+// Passed by value from Python (ctypes.Structure of the same layout).  The
+// codebook is read only at indices fixed at compile time (unrolled loops),
+// so it stays in the parameter bank and never goes to local memory.
 struct QtFormat {
-  int kind;   // QT_NONE, QT_POSIT, QT_FP8, QT_FP, QT_INT
-  int a;      // posit: nbits; fp8: floor(log2(min normal)); fp: ebits; int: nbits
+  int kind;   // QT_NONE, QT_POSIT, QT_FP8, QT_FP, QT_INT, QT_NF, QT_CAST
+  int a;      // posit: nbits; fp8: floor(log2(min normal)); fp: ebits; int: nbits;
+              // nf: codebook entries; cast: 1 = float16, 0 = bfloat16
   int b;      // posit: es; fp8 and fp: mbits
   int flags;  // fp and int: 1 = unsigned
-  float hi;   // posit: maxpos; fp8, fp: max normal; int: quant_max
-  float lo;   // posit: minpos; fp8: min normal; int: quant_min
+  float hi;   // posit: maxpos; fp8, fp: max normal; int: quant_max; nf: largest entry
+  float lo;   // posit: minpos; fp8: min normal; int: quant_min; nf: least entry
   float zero; // posit, fp8: magnitudes at or below (fp8) / below (posit) this round to 0
+  float cb[QT_CODEBOOK];  // nf: the codebook in the input dtype, entries 0..a-1
 };
 
-enum { QT_NONE = 0, QT_POSIT = 1, QT_FP8 = 2, QT_FP = 3, QT_INT = 4 };
+enum { QT_NONE = 0, QT_POSIT = 1, QT_FP8 = 2, QT_FP = 3, QT_INT = 4,
+       QT_NF = 5, QT_CAST = 6 };
 
 __device__ __forceinline__ float qt_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -126,17 +147,47 @@ __device__ __forceinline__ float qt_fp(float a, const QtFormat& f) {
   return out;
 }
 
+// Nearest codebook entry; BF16: each distance rounded to bf16.
+template <bool BF16>
+__device__ __forceinline__ float qt_nf(float x, const QtFormat& f) {
+  auto R = [](float v) { return BF16 ? qt_bf16(v) : v; };
+  const int n = f.a;
+  if (isnan(x)) return f.cb[0];
+  const float xc = fminf(fmaxf(x, f.lo), f.hi);
+  float best_d = __int_as_float(0x7f800000), best = f.cb[0];
+#pragma unroll
+  for (int i = 0; i < QT_CODEBOOK; ++i) {
+    if (i < n) {
+      const float c = f.cb[i];
+      const float d = fabsf(R(__fsub_rn(c, xc)));
+      if (d < best_d) {  // strict: ties keep the first entry
+        best_d = d;
+        best = c;
+      }
+    }
+  }
+  return best;
+}
+
+__device__ __forceinline__ float qt_cast(float x, const QtFormat& f) {
+  if (isnan(x)) return __int_as_float(0x7fc00000);
+  return f.a ? __half2float(__float2half_rn(x)) : qt_bf16(x);
+}
+
 // Round x (an exact value of the input dtype: bf16 when BF16) to the
 // format; the result is a value of the input dtype.
 template <bool BF16>
 __device__ __forceinline__ float qt_round(float x, const QtFormat& f) {
   float y;
   switch (f.kind) {
+    case QT_NONE: return x;
     case QT_POSIT: y = qt_posit(x, f); break;
     case QT_FP8: y = qt_fp8(x, f); break;
     case QT_FP: return qt_fp<BF16>(x, f);
     case QT_INT: y = qt_int(x, f); break;
-    default: return x;
+    case QT_NF: return qt_nf<BF16>(x, f);
+    case QT_CAST: y = qt_cast(x, f); break;
+    default: return __int_as_float(0x7fc00000);
   }
   return BF16 ? qt_bf16(y) : y;
 }

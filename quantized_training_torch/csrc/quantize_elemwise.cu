@@ -6,9 +6,15 @@
 // flattened (rows, 1024) view and falls back to XLA when the size does not
 // tile; here any size is taken and the ragged tail is masked.
 //
+// Every kind of qt_round.cuh: posit, fp8, fpN, int, the NormalFloat
+// codebooks (the search compares in the input's dtype, so bf16 and f32
+// inputs take separate instantiations) and the native bf16 / f16 casts.
+//
 // What bounds it on an H100: bytes, one read and one write of the tensor at
-// 3.35 TB/s; the ~20 integer operations per element of the posit rounding
-// stay below that on 132 SMs.  Each thread moves 16 bytes per load and store
+// 3.35 TB/s; the ~20 integer operations per element of the posit rounding,
+// and the ~100 of a 16-entry codebook search (subtract, round to bf16,
+// compare and select per entry, unrolled over the codebook held in the
+// parameter bank), stay near or below that on 132 SMs.  Each thread moves 16 bytes per load and store
 // (8 bf16 or 4 f32 values) in a grid-stride loop; a tensor whose pointers
 // are not 16-byte aligned takes the scalar loop.
 

@@ -2,7 +2,8 @@
 
 from .bert import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
                    BertForSequenceClassification, BertModel)
-from .hf_loader import convert_bert
+from .hf_loader import (convert_bert, convert_llama, load_state_dict_dir,
+                        maybe_fuse_qkv)
 from .layers import (Embed, FakeQuant, NoNorm, QDense, QLayerNorm,
                      QLoRADense, QRMSNorm, QSoftmax, QuantMixin,
                      bwd_quantize)
@@ -13,5 +14,6 @@ __all__ = [
     "BertForSequenceClassification", "BertModel", "Embed", "FakeQuant",
     "LlamaConfig", "LlamaForCausalLM", "NoNorm", "QDense", "QLayerNorm",
     "QLoRADense", "QRMSNorm", "QSoftmax", "QuantMixin", "bwd_quantize",
-    "convert_bert", "fuse_qkv_params",
+    "convert_bert", "convert_llama", "fuse_qkv_params", "load_state_dict_dir",
+    "maybe_fuse_qkv",
 ]

@@ -6,16 +6,62 @@ Loading is a name and layout mapping: torch Linear weights (out, in)
 transpose to kernels (in, out); LayerNorm weight/bias become scale/bias;
 embeddings stay as they are.  Every value comes out as a float32 CPU
 tensor under the port's state-dict name (the reference's param path with
-``.`` for ``/``), ready for ``model.load_state_dict``.  Reading
-checkpoint files from disk is not ported yet.
+``.`` for ``/``), ready for ``model.load_state_dict``.  A directory of
+``.safetensors`` shards is read by :func:`load_state_dict_dir`, which parses
+the format itself (the ``safetensors`` package is not needed).
 """
 
+import json
+import os
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["convert_bert"]
+__all__ = ["convert_bert", "convert_llama", "load_state_dict_dir",
+           "maybe_fuse_qkv"]
+
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16,
+                       "F16": torch.float16}
+
+
+def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """One ``.safetensors`` file: an 8-byte little-endian header length, a
+    JSON header of {name: {dtype, shape, data_offsets}}, then the raw
+    little-endian tensor bytes, offsets counted from the end of the
+    header.  The tensors are views of one buffer holding the file."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8:8 + n].decode("utf-8"))
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype "
+                             f"{info['dtype']} (F32, BF16 and F16 are read)")
+        begin, end = info["data_offsets"]
+        count = (end - begin) // dtype.itemsize
+        flat = (torch.frombuffer(data, dtype=dtype, count=count,
+                                 offset=base + begin) if count
+                else torch.empty(0, dtype=dtype))
+        out[name] = flat.reshape(info["shape"])
+    return out
+
+
+def load_state_dict_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every ``.safetensors`` shard of a directory, in name order, as one
+    {HF name: CPU tensor} dict (F32, BF16 and F16 tensors)."""
+    state = {}
+    for fname in sorted(os.listdir(path)):
+        if fname.endswith(".safetensors"):
+            state.update(_read_safetensors(os.path.join(path, fname)))
+    if not state:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    return state
 
 
 def _np(t) -> np.ndarray:
@@ -85,3 +131,35 @@ def convert_bert(state: Mapping, num_layers: int, prefix: str = "bert",
         if f"{head}.weight" in state:
             _dense(p, head, state, head)
     return p
+
+
+def convert_llama(state: Mapping, num_layers: int,
+                  tie_word_embeddings: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """HF LlamaForCausalLM state dict -> the state dict of this package's
+    LlamaForCausalLM (unfused q/k/v)."""
+    p: Dict[str, torch.Tensor] = {}
+    _embed(p, "model.embed_tokens", state, "model.embed_tokens")
+    for i in range(num_layers):
+        hf, ours = f"model.layers.{i}", f"model.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _dense(p, f"{ours}.self_attn.{proj}", state,
+                   f"{hf}.self_attn.{proj}")
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            _dense(p, f"{ours}.mlp.{proj}", state, f"{hf}.mlp.{proj}")
+        _norm_(p, f"{ours}.input_layernorm", state, f"{hf}.input_layernorm")
+        _norm_(p, f"{ours}.post_attention_layernorm", state,
+               f"{hf}.post_attention_layernorm")
+    _norm_(p, "model.norm", state, "model.norm")
+    if not tie_word_embeddings and "lm_head.weight" in state:
+        _dense(p, "lm_head", state, "lm_head")
+    return p
+
+
+def maybe_fuse_qkv(params: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """The fused-qkv layout when ``cfg.fused_qkv`` is set (checkpoints
+    store q/k/v unfused; see ``llama.fuse_qkv_params``)."""
+    if getattr(cfg, "fused_qkv", False):
+        from .llama import fuse_qkv_params
+        return fuse_qkv_params(params, cfg)
+    return dict(params)

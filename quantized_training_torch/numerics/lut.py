@@ -3,10 +3,12 @@
 ``quantize_fn(dtype)`` returns a :class:`QuantFn`: a callable that carries
 its parsed format (:class:`RoundFormat`).  On a CPU tensor it runs the plain
 PyTorch rounding of this package; on a CUDA tensor it launches the
-elementwise rounding kernel (``ops/quantize_elemwise.py``) for posit, fp and
-int formats, and raises for the others.  The kernels that round inside
-themselves (flash attention's probabilities and output, the fused
-quantize-matmul) read the same format from the callable.
+elementwise rounding kernel (``ops/quantize_elemwise.py``) for every format:
+posit, fp8, fpN, int, the NormalFloat codebooks and the native bf16 / f16
+casts (the ``float32`` cast is the identity on bf16 and f32 tensors, so it
+returns its input).  The kernels that round inside themselves (flash
+attention's probabilities and output, the fused quantize-matmul) read the
+same format from the callable.
 
 The 2**16-entry tables (:func:`get_quantization_map`) are the executable
 specification: the reference quantizes through them (reference:
@@ -25,7 +27,7 @@ from .bitutils import f32_bits, lshr
 from .fp8 import (fp_max_norm, parse_fp_dtype, quantize_elemwise,
                   quantize_to_fp8_e4m3, quantize_to_fp8_e5m2)
 from .integer import quantize_to_int
-from .normal_float import quantize_to_nf
+from .normal_float import nf_codebook, quantize_to_nf
 from .posit import quantize_to_posit_fast
 
 __all__ = ["RoundFormat", "QuantFn", "bf16_universe", "get_quantization_map",
@@ -40,7 +42,11 @@ class RoundFormat:
 
     kind: ``posit`` (a=nbits, b=es), ``fp8`` (the E4M3/E5M2 bit form:
     b=mbits, max_norm, min_norm), ``fp`` (the generic fpN_eXmY form: a=ebits,
-    b=mbits, max_norm, unsigned) or ``int`` (a=nbits, unsigned)."""
+    b=mbits, max_norm, unsigned), ``int`` (a=nbits, unsigned), ``nf`` (a=k,
+    b=int_bits or 0, ``codebook`` the 2**k entries in float32; the kernels
+    search them rounded to the input's dtype, as the plain search does) or
+    ``cast`` (a native float: a=ebits, b=mbits of bfloat16, float16 or
+    float32)."""
 
     kind: str
     a: int = 0
@@ -48,12 +54,17 @@ class RoundFormat:
     max_norm: float = 0.0
     min_norm: float = 0.0
     unsigned: bool = False
+    codebook: Tuple[float, ...] = ()
+
+    @property
+    def identity(self) -> bool:
+        """A cast to float32: no change to a bf16 or f32 value."""
+        return self.kind == "cast" and self.b == 23
 
 
 class QuantFn:
     """A direct elementwise quantizer: ``plain`` on CPU tensors, the
-    rounding kernel on CUDA tensors when ``fmt`` is set, an error on any
-    other device or when the format has no kernel."""
+    rounding kernel on CUDA tensors, an error on any other device."""
 
     def __init__(self, dtype: Optional[str], plain: Callable,
                  fmt: Optional[RoundFormat]):
@@ -64,7 +75,9 @@ class QuantFn:
             return x
         if x.device.type == "cpu":
             return self.plain(x)
-        if x.device.type == "cuda" and self.fmt is not None:
+        if x.device.type == "cuda":
+            if self.fmt.identity and x.dtype in _KERNEL_DTYPES:
+                return x
             from ..ops.quantize_elemwise import quantize_elemwise as launch
             # the kernel walks a flat array: a strided view (an einsum's
             # permuted product, a sliced token) is copied first
@@ -84,6 +97,9 @@ def bf16_universe() -> torch.Tensor:
 
 _NATIVE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                   "bfloat16": torch.bfloat16}
+# (ebits, mbits) of each native dtype, the ``cast`` format's a and b
+_NATIVE_BITS = {"float32": (8, 23), "float16": (5, 10), "bfloat16": (8, 7)}
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _fp_plain(x, ebits, mbits, max_norm, unsigned):
@@ -104,7 +120,8 @@ def quantize_fn(dtype: Optional[str]) -> QuantFn:
 
     if dtype in _NATIVE_DTYPES:
         target = _NATIVE_DTYPES[dtype]
-        return QuantFn(dtype, lambda x: x.to(target).to(x.dtype), None)
+        return QuantFn(dtype, lambda x: x.to(target).to(x.dtype),
+                       RoundFormat("cast", *_NATIVE_BITS[dtype]))
 
     if (m := re.fullmatch(r"(u?)int(\d+)", dtype, re.IGNORECASE)):
         nbits, signed = int(m.group(2)), not m.group(1)
@@ -141,7 +158,9 @@ def quantize_fn(dtype: Optional[str]) -> QuantFn:
             indices, values = quantize_to_nf(x, k, int_bits=int_bits)
             return values[indices.long()]
 
-        return QuantFn(dtype, _nf, None)
+        codebook = nf_codebook(k, int_bits=int_bits).tolist()
+        return QuantFn(dtype, _nf, RoundFormat("nf", k, int_bits or 0,
+                                               codebook=tuple(codebook)))
 
     raise ValueError(f"Unsupported dtype: {dtype}")
 

@@ -13,6 +13,8 @@ import torch
 
 __all__ = ["create_normal_map", "quantize_to_nf", "nf_codebook"]
 
+_CHUNK = 1 << 20
+
 
 @functools.lru_cache(maxsize=None)
 def _normal_map_np(offset: float, use_extra_value: bool, k: int) -> np.ndarray:
@@ -56,6 +58,14 @@ def quantize_to_nf(x: torch.Tensor, k: int = 4, use_extra_value: bool = True,
     """(int32 codebook indices, codebook in ``x.dtype``) of the nearest
     entry; ties take the lowest index."""
     values = nf_codebook(k, use_extra_value, int_bits, x.dtype, x.device)
-    x = torch.clamp(x, values.min(), values.max())
-    dist = (values - x[..., None]).abs()
-    return torch.argmin(dist, dim=-1).to(torch.int32), values
+    lo, hi = values.min(), values.max()
+    # the search builds a (n, 2**k) distance tensor: a 4096 x 11008 f32
+    # weight would take 2.9 GB at once, so it runs over slices of the
+    # flattened input (each element's search is independent: same bits)
+    flat = x.reshape(-1)
+    indices = torch.empty(flat.shape, dtype=torch.int32, device=x.device)
+    for s in range(0, flat.numel(), _CHUNK):
+        part = torch.clamp(flat[s:s + _CHUNK], lo, hi)
+        indices[s:s + _CHUNK] = torch.argmin((values - part[:, None]).abs(),
+                                             dim=-1)
+    return indices.reshape(x.shape), values

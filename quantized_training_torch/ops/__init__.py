@@ -5,7 +5,9 @@ tensors, launches its kernel for CUDA tensors and counts the launches in
 ``flash_attention.two_pass_launches``; the launches of either flash form
 that also saved the logsumexp for the backward in
 ``flash_attention.lse_launches``; the integer-dot and K^T forms of the
-int-KV decode in ``int_kv_decode_attention.tile_launches``).
+int-KV decode in ``int_kv_decode_attention.tile_launches``; the rounding
+kernel's NormalFloat and cast forms also in
+``quantize_elemwise.nf_launches`` and ``cast_launches``).
 
 The submodules keep their names (``ops.flash_attention`` is the module);
 import the wrappers from them.
@@ -36,6 +38,10 @@ KERNEL_COUNTERS = {
     "int_kv_decode_tile": (int_kv_attention.int_kv_decode_attention,
                            "tile_launches"),
     "quantize_elemwise": (quantize_elemwise.quantize_elemwise, "launches"),
+    "quantize_elemwise_nf": (quantize_elemwise.quantize_elemwise,
+                             "nf_launches"),
+    "quantize_elemwise_cast": (quantize_elemwise.quantize_elemwise,
+                               "cast_launches"),
     "quantized_matmul": (quantized_matmul.quantized_matmul, "launches"),
 }
 

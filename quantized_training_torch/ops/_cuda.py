@@ -22,8 +22,8 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "QtFormat", "build", "load",
-           "check", "qt_format", "stream_ptr"]
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "QT_CODEBOOK", "QtFormat", "build",
+           "load", "check", "qt_format", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -112,18 +112,27 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+QT_CODEBOOK = 16     # entries a QtFormat carries (QT_CODEBOOK in the header)
+
+
 class QtFormat(ctypes.Structure):
     """``struct QtFormat`` of ``csrc/qt_round.cuh``."""
     _fields_ = [("kind", ctypes.c_int), ("a", ctypes.c_int),
                 ("b", ctypes.c_int), ("flags", ctypes.c_int),
                 ("hi", ctypes.c_float), ("lo", ctypes.c_float),
-                ("zero", ctypes.c_float)]
+                ("zero", ctypes.c_float),
+                ("cb", ctypes.c_float * QT_CODEBOOK)]
 
 
-def qt_format(fmt) -> QtFormat:
-    """The kernels' descriptor of a :class:`numerics.RoundFormat`; ``None``
-    is no rounding."""
-    if fmt is None:
+def qt_format(fmt, bf16: bool = True) -> QtFormat:
+    """The kernels' descriptor of a :class:`numerics.RoundFormat` for bf16
+    input (``bf16=False``: f32 input, which only the elementwise kernel
+    takes); ``None`` (and the cast to float32, the identity on bf16 and
+    f32) is no rounding.  An NF codebook goes in the input's dtype, as the
+    plain search holds it, with its least and largest entries; one of more
+    than ``QT_CODEBOOK`` entries (nf5 and wider) raises: the kernels search
+    it unrolled, from the parameter bank."""
+    if fmt is None or fmt.identity:
         return QtFormat(0, 0, 0, 0, 0.0, 0.0, 0.0)
     if fmt.kind == "posit":
         nbits, es = fmt.a, fmt.b
@@ -144,6 +153,14 @@ def qt_format(fmt) -> QtFormat:
                   else (-(2 ** (fmt.a - 1)), 2 ** (fmt.a - 1) - 1))
         return QtFormat(4, fmt.a, 0, int(fmt.unsigned), float(hi), float(lo),
                         0.0)
+    if fmt.kind == "nf" and 0 < len(fmt.codebook) <= QT_CODEBOOK:
+        cb = torch.tensor(fmt.codebook, dtype=torch.float32)
+        if bf16:
+            cb = cb.to(torch.bfloat16).to(torch.float32)
+        return QtFormat(5, cb.numel(), 0, 0, float(cb.max()), float(cb.min()),
+                        0.0, (ctypes.c_float * QT_CODEBOOK)(*cb.tolist()))
+    if fmt.kind == "cast" and (fmt.a, fmt.b) in ((8, 7), (5, 10)):
+        return QtFormat(6, int(fmt.b == 10), 0, 0, 0.0, 0.0, 0.0)
     raise ValueError(f"no kernel rounding for {fmt}")
 
 

@@ -88,11 +88,72 @@ def naive_attention(q, k, v, *, scale: float, causal: bool = True,
     """The plain version: full (B, H, S, T) scores in f32.  Without
     ``p_qfn``: softmax, p rounded to v's dtype, f32-accumulated p @ v.  With
     it: p = exp(s - logsumexp(s)), rounded to bf16 and through ``p_qfn``,
-    then the f32 p @ v.  ``out_qfn`` rounds the output in q's dtype.  Every
+    then the f32 p @ v, summed tile by tile as the kernel does.
+    ``out_qfn`` rounds the output in q's dtype.  Every
     rounding is the plain PyTorch one, on any device."""
     return attention_forward_plain(q, k, v, scale=scale, causal=causal,
                                    q_offset=q_offset, p_qfn=p_qfn,
                                    out_qfn=out_qfn, save=False)[0]
+
+
+TILE = 128   # the reference kernel's block_q = block_k
+
+
+def _two_pass_tiles(q, k, v, p_qfn, *, scale, causal, q_offset, save):
+    """The two-pass form in the reference kernel's tile order
+    (ops/pallas/flash_attention.py:66 with 128 x 128 blocks): per query
+    tile, pass 1 carries the running max m and sum l over the key tiles
+    (l = l exp(m - m') + sum exp(s - m')) to lse = m + log l; pass 2 adds
+    round(p) @ v tile by tile in f32, p = exp(s - lse) rounded to bf16 and
+    through ``p_qfn``.  Key tiles wholly above the causal diagonal are
+    skipped, which changes no bit (their p is 0).  Returns (acc, lse,
+    acc_unq) in f32; acc_unq sums bf16(p) @ v (None unless ``save``)."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    k, v = _expand(k, H), _expand(v, H)
+    f32 = torch.float32
+    acc = torch.empty((B, H, S, D), dtype=f32, device=q.device)
+    acc_unq = torch.empty_like(acc) if save else None
+    lse = torch.empty((B, H, S), dtype=f32, device=q.device)
+    for i0 in range(0, S, TILE):
+        i1 = min(i0 + TILE, S)
+        last_q = q_offset + i1 - 1
+        tiles = []
+        m = torch.full((B, H, i1 - i0, 1), NEG_INF, dtype=f32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for j0 in range(0, T, TILE):
+            if causal and j0 > last_q:
+                break
+            j1 = min(j0 + TILE, T)
+            st = torch.matmul(q[:, :, i0:i1].to(f32),
+                              k[:, :, j0:j1].to(f32).transpose(-1, -2)) * scale
+            if causal:
+                q_pos = torch.arange(i0, i1, device=q.device)[:, None] \
+                    + q_offset
+                k_pos = torch.arange(j0, j1, device=q.device)[None, :]
+                st = torch.where(k_pos <= q_pos, st,
+                                 torch.full_like(st, NEG_INF))
+            tiles.append((j0, j1, st))
+            m_new = torch.maximum(m, torch.amax(st, dim=-1, keepdim=True))
+            l = (l * torch.exp(m - m_new)
+                 + torch.sum(torch.exp(st - m_new), dim=-1, keepdim=True))
+            m = m_new
+        row_lse = m + torch.log(torch.where(l == 0.0, torch.ones_like(l), l))
+        a = torch.zeros((B, H, i1 - i0, D), dtype=f32, device=q.device)
+        a_unq = torch.zeros_like(a) if save else None
+        for j0, j1, st in tiles:
+            p = torch.exp(st - row_lse)
+            pq = _plain(p_qfn)(p.to(torch.bfloat16)).to(f32)
+            vt = v[:, :, j0:j1]
+            a = a + _pv(pq, vt)
+            if save:
+                a_unq = a_unq + _pv(p, vt)
+        acc[:, :, i0:i1] = a
+        lse[:, :, i0:i1] = row_lse[..., 0]
+        if save:
+            acc_unq[:, :, i0:i1] = a_unq
+    return acc, lse, acc_unq
 
 
 def attention_forward_plain(q, k, v, *, scale: float, causal: bool = True,
@@ -101,21 +162,22 @@ def attention_forward_plain(q, k, v, *, scale: float, causal: bool = True,
     """The plain version of the training forward: ``(o, lse, o_unq)`` with
     lse f32 (B, H, S) and o_unq the output with p unrounded (bf16(p) @ v
     with ``p_qfn``, the output before ``out_qfn`` without it).  With
-    ``save=False`` lse and o_unq are None."""
-    s = _scores(q, k, scale=scale, causal=causal, q_offset=q_offset)
-    v = _expand(v, q.shape[1])
+    ``save=False`` lse and o_unq are None.  The two-pass form (``p_qfn``)
+    sums in the reference kernel's tile order (:func:`_two_pass_tiles`)."""
     lse = o_unq = None
     if p_qfn is None:
-        out = _pv(torch.softmax(s, dim=-1), v).to(q.dtype)
+        s = _scores(q, k, scale=scale, causal=causal, q_offset=q_offset)
+        out = _pv(torch.softmax(s, dim=-1), _expand(v, q.shape[1])).to(
+            q.dtype)
         if save:
             lse, o_unq = torch.logsumexp(s, dim=-1), out
     else:
-        lse = torch.logsumexp(s, dim=-1)
-        p = torch.exp(s - lse[..., None])
-        pq = _plain(p_qfn)(p.to(torch.bfloat16)).to(torch.float32)
-        out = _pv(pq, v).to(q.dtype)
+        acc, lse, acc_unq = _two_pass_tiles(
+            q, k, v, p_qfn, scale=scale, causal=causal, q_offset=q_offset,
+            save=save)
+        out = acc.to(q.dtype)
         if save:
-            o_unq = _pv(p, v).to(q.dtype)
+            o_unq = acc_unq.to(q.dtype)
         else:
             lse = None
     if out_qfn is not None:
@@ -242,7 +304,7 @@ def flash_bwd_di(q, k, v, do, lse, *, scale: float, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_di_plain(q, k, v, do, lse, err_qfn=err_qfn, **kw)
     _check_bwd_operands("flash_bwd_di", q, k, v, do, lse)
-    fmt = _kernel_format(err_qfn, "err_qfn")
+    fmt = _kernel_format(err_qfn, "err_qfn", backward=True)
     di = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     err = lib.flash_bwd_di(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -262,7 +324,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, *, scale: float, causal: bool = True,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, di, err_qfn=err_qfn, **kw)
     _check_bwd_operands("flash_bwd_dq", q, k, v, do, lse, di)
-    fmt = _kernel_format(err_qfn, "err_qfn")
+    fmt = _kernel_format(err_qfn, "err_qfn", backward=True)
     dq = torch.empty_like(q)
     lib = _bwd_lib()
     err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -284,8 +346,8 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, scale: float, causal: bool = True,
         return flash_bwd_dkv_plain(q, k, v, do, lse, di, p_qfn=p_qfn,
                                    err_qfn=err_qfn, **kw)
     _check_bwd_operands("flash_bwd_dkv", q, k, v, do, lse, di)
-    p_fmt = _kernel_format(p_qfn, "p_qfn")
-    e_fmt = _kernel_format(err_qfn, "err_qfn")
+    p_fmt = _kernel_format(p_qfn, "p_qfn", backward=True)
+    e_fmt = _kernel_format(err_qfn, "err_qfn", backward=True)
     B, H, _, D = q.shape
     T = k.shape[2]
     dk = torch.empty((B, H, T, D), dtype=k.dtype, device=q.device)
@@ -345,13 +407,21 @@ def _lib():
     return lib
 
 
-def _kernel_format(fn, name):
+def _kernel_format(fn, name, backward=False):
+    """The kernel format of a hook.  The backward kernels (and so the
+    training forward, whose backward they are) take the posit, fp8, fp and
+    int roundings they are checked with on the card; a NormalFloat codebook
+    or a native cast there raises."""
     if fn is None:
         return None
     if not isinstance(fn, QuantFn) or fn.fmt is None:
         raise ValueError(f"flash_attention kernel: {name} must be a "
                          f"quantize_fn callable with a kernel format, got "
                          f"{fn!r}")
+    if backward and fn.fmt.kind in ("nf", "cast"):
+        raise ValueError(f"flash backward kernels: {name}={fn.dtype!r} has "
+                         f"no checked backward form (posit, fp8, fp and int "
+                         f"roundings only)")
     return fn.fmt
 
 
@@ -451,10 +521,15 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     autograd records the call, the forward saves the logsumexp (and o_unq)
     and the backward runs the flash backward kernels.
     """
+    train = torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in (q, k, v))
     if q.device.type == "cuda":
         for name, fn in (("q_qfn", q_qfn), ("k_qfn", k_qfn),
                          ("v_qfn", v_qfn), ("err_qfn", err_qfn)):
             _kernel_format(fn, name)
+        if train:
+            _kernel_format(p_qfn, "p_qfn", backward=True)
+            _kernel_format(err_qfn, "err_qfn", backward=True)
     # hoisted operand roundings, straight-through
     if q_qfn is not None:
         q = straight_through(q_qfn)(q)
@@ -465,7 +540,7 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     hooks = _Hooks(scale, causal, q_offset, p_qfn, out_qfn, err_qfn)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if train:
         return _FlashAttention.apply(q, k, v, hooks)
     return _forward(q, k, v, hooks, save=False)[0]
 

@@ -2,8 +2,9 @@
 
 The wrapper of the rounding kernel that every direct-rounding site reaches
 on CUDA through ``numerics.quantize_fn``: any contiguous bf16 or f32 tensor,
-the same dtype out.  Its plain version is the numerics code itself
-(``QuantFn.plain``), taken only for CPU tensors.
+the same dtype out, in every format (posit, fp8, fpN, int, the NormalFloat
+codebooks, the native bf16 and f16 casts).  Its plain version is the
+numerics code itself (``QuantFn.plain``), taken only for CPU tensors.
 """
 
 import ctypes
@@ -46,11 +47,18 @@ def quantize_elemwise(x: torch.Tensor, fmt) -> torch.Tensor:
     lib = _lib()
     err = lib.quantize_elemwise(
         x.data_ptr(), out.data_ptr(), x.numel(),
-        int(x.dtype == torch.bfloat16), _cuda.qt_format(fmt),
+        int(x.dtype == torch.bfloat16),
+        _cuda.qt_format(fmt, bf16=x.dtype == torch.bfloat16),
         _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "quantize_elemwise")
     quantize_elemwise.launches += 1
+    if fmt.kind == "nf":
+        quantize_elemwise.nf_launches += 1
+    elif fmt.kind == "cast":
+        quantize_elemwise.cast_launches += 1
     return out
 
 
-quantize_elemwise.launches = 0
+quantize_elemwise.launches = 0        # every form
+quantize_elemwise.nf_launches = 0     # the NormalFloat-codebook form
+quantize_elemwise.cast_launches = 0   # the native bf16 / f16 cast form

@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sliding_window_perplexity"]
 
 
 def resolve_device(device) -> torch.device:
@@ -17,3 +17,6 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available: the serving path runs its kernels on an "
             "NVIDIA GPU; pass device='cpu' to run the plain PyTorch versions")
     return device
+
+
+from .evaluation import sliding_window_perplexity  # noqa: E402

@@ -3,7 +3,8 @@ under error taps runs kernels 2-4 and never their plain versions, an
 unpacked 8-bit Adam leaf launches kernel 13 and a packed one kernel 14,
 the int8 decode attention's integer-dot and K^T forms launch their kernel,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
-kernels and agree with their plain versions.  Marked
+kernels and agree with their plain versions, and the rounding kernel takes
+the NormalFloat codebooks and native casts bit for bit.  Marked
 ``cuda``: without a card each test skips.  This file imports no JAX, so on
 a card's machine without JAX it runs as
 
@@ -230,3 +231,42 @@ def test_int_kv_tile_forms_launch_and_match_plain(cuda_device, int_dots,
     assert float(err.max()) <= 2e-3
     assert float((err > 1e-4 + 1e-3 * want.float().abs()).float().mean()) \
         <= 0.005
+
+
+@pytest.mark.parametrize("fmt", ["nf4", "nf4_6", "nf3", "bfloat16",
+                                 "float16"])
+def test_rounding_kernel_nf_and_cast_forms(cuda_device, fmt):
+    """Kernel 11 in its NormalFloat-codebook and native-cast forms: through
+    quantize_fn on CUDA tensors it launches once per call and is bit-equal
+    to its plain version over every bf16 pattern (NaN lanes compared as
+    NaN) and over random f32 patterns; the float32 cast returns its input
+    without a launch."""
+    from quantized_training_torch.ops import quantize_elemwise as qe
+    qfn = quantize_fn(fmt)
+    universe = torch.arange(2 ** 16, dtype=torch.int32,
+                            device=cuda_device).to(torch.int16).view(
+                                torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    f32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 16,), dtype=torch.int32,
+                        device=cuda_device, generator=gen).view(torch.float32)
+    for x, itype in ((universe, torch.int16), (universe[1:], torch.int16),
+                     (f32, torch.int32)):
+        got = _launches(qe.quantize_elemwise, lambda: qfn(x))
+        want = qfn.plain(x)
+        both_nan = torch.isnan(got.float()) & torch.isnan(want.float())
+        assert bool(((got.view(itype) == want.view(itype)) | both_nan).all())
+    before = qe.quantize_elemwise.launches
+    assert quantize_fn("float32")(universe) is universe
+    assert qe.quantize_elemwise.launches == before
+
+
+def test_flash_backward_refuses_nf_and_cast(cuda_device):
+    """The flash backward kernels take only the roundings they are checked
+    with on the card: an NF or native-cast p or error rounding in a
+    training call raises before any launch."""
+    q = torch.zeros((1, 2, 128, 128), device=cuda_device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    for hooks in (dict(p_qfn=quantize_fn("nf4")),
+                  dict(err_qfn=quantize_fn("bfloat16"))):
+        with pytest.raises(ValueError, match="no checked backward form"):
+            fa.flash_attention(q, q, q, **hooks)

@@ -73,10 +73,96 @@ def test_quantization_hooks_raise():
     assert torch.equal(flash_attention(q, k, v,
                                        err_qfn=quantize_fn("posit8_1")),
                        flash_attention(q, k, v))
-    for bad in (lambda p: p, quantize_fn("nf4")):
-        with pytest.raises(ValueError, match="quantize_fn callable"):
-            _kernel_format(bad, "p_qfn")
+    with pytest.raises(ValueError, match="quantize_fn callable"):
+        _kernel_format(lambda p: p, "p_qfn")
     assert _kernel_format(quantize_fn("posit8_1"), "p_qfn").kind == "posit"
+    # the forward kernels take every format; the backward kernels only the
+    # roundings they are checked with on the card
+    for fmt in ("nf4", "bfloat16"):
+        assert _kernel_format(quantize_fn(fmt), "p_qfn") is not None
+        with pytest.raises(ValueError, match="no checked backward form"):
+            _kernel_format(quantize_fn(fmt), "err_qfn", backward=True)
     meta = q.to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         flash_attention(meta, meta, meta)
+
+
+# ---- the two-pass form against a tile-wise simulation, bit for bit -------
+def _two_pass_oracle(q, k, v, scale, block_q, block_k, p_qfn, causal=True,
+                     out_qfn=None):
+    """The reference's tile-by-tile account of the two-pass kernel
+    (tests/test_flash_backward.py:TestExactProbabilityQuantization), in
+    torch: per (batch, head, query tile), the running max and sum over the
+    key tiles give lse; then round(p) @ v is added tile by tile in f32."""
+    from quantized_training_torch.ops.flash_attention import NEG_INF
+
+    B, H, S, D = q.shape
+    _, KV, T, _ = k.shape
+    group = H // KV
+    nk = T // block_k
+    f32 = torch.float32
+    out = torch.zeros((B, H, S, D), dtype=q.dtype)
+    for b in range(B):
+        for h in range(H):
+            for i in range(S // block_q):
+                qt = q[b, h, i * block_q:(i + 1) * block_q]
+                m = torch.full((block_q, 1), NEG_INF, dtype=f32)
+                l = torch.zeros((block_q, 1), dtype=f32)
+                tiles = []
+                for j in range(nk):
+                    if causal and j * block_k > (i + 1) * block_q - 1:
+                        tiles.append(None)
+                        continue
+                    kt = k[b, h // group, j * block_k:(j + 1) * block_k]
+                    s = torch.matmul(qt.to(f32), kt.to(f32).T) * scale
+                    if causal:
+                        q_pos = i * block_q + torch.arange(block_q)[:, None]
+                        k_pos = j * block_k + torch.arange(block_k)[None, :]
+                        s = torch.where(k_pos <= q_pos, s,
+                                        torch.full_like(s, NEG_INF))
+                    tiles.append(s)
+                    m_new = torch.maximum(m, torch.amax(s, dim=1,
+                                                        keepdim=True))
+                    l = (l * torch.exp(m - m_new)
+                         + torch.sum(torch.exp(s - m_new), dim=1,
+                                     keepdim=True))
+                    m = m_new
+                lse = m + torch.log(torch.where(l == 0.0, torch.ones_like(l),
+                                                l))
+                acc = torch.zeros((block_q, D), dtype=f32)
+                for j in range(nk):
+                    if tiles[j] is None:
+                        continue
+                    vt = v[b, h // group, j * block_k:(j + 1) * block_k]
+                    p = torch.exp(tiles[j] - lse)
+                    pq = p_qfn(p.to(torch.bfloat16)).to(f32)
+                    acc = acc + torch.matmul(pq.to(vt.dtype).to(f32),
+                                             vt.to(f32))
+                o = acc.to(q.dtype)
+                if out_qfn is not None:
+                    o = out_qfn(o).to(q.dtype)
+                out[b, h, i * block_q:(i + 1) * block_q] = o
+    return out
+
+
+# (H, KV, causal, p format, out format, input dtype): the JAX suite's three
+# cases (tests/test_flash_backward.py:196-218, f32 inputs, 128 x 128 tiles)
+# and the bf16 operands the kernels take, with an NF probability rounding.
+@pytest.mark.parametrize("H,KV,causal,p_fmt,out_fmt,dtype", [
+    (2, 2, True, "posit8_1", None, torch.float32),
+    (2, 2, False, "posit8_1", None, torch.float32),
+    (4, 2, True, "posit8_1", "e4m3", torch.float32),
+    (4, 2, True, "nf4", "posit8_1", torch.bfloat16),
+])
+def test_two_pass_plain_bit_equal_to_tilewise_simulation(H, KV, causal, p_fmt,
+                                                         out_fmt, dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _qkv(256, 256, H=H, KV=KV, seed=7))
+    p_qfn = quantize_fn(p_fmt)
+    out_qfn = quantize_fn(out_fmt) if out_fmt else None
+    got = flash_attention(q, k, v, causal=causal, p_qfn=p_qfn,
+                          out_qfn=out_qfn)
+    want = _two_pass_oracle(q, k, v, 1.0 / np.sqrt(128), 128, 128, p_qfn,
+                            causal=causal, out_qfn=out_qfn)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)

@@ -147,8 +147,17 @@ def test_cuda_dispatch_raises_off_cpu():
     """A rounding on any device but the CPU goes to a kernel or raises: a
     meta tensor never reaches the plain code."""
     x = torch.empty((4, 8), dtype=torch.bfloat16, device="meta")
-    for dtype in ("posit8_1", "e4m3", "int8", "nf4"):
+    for dtype in ("posit8_1", "e4m3", "int8", "nf4", "nf4_6", "bfloat16",
+                  "float16", "float32"):
         with pytest.raises(ValueError, match="no rounding kernel"):
             tnum.quantize_fn(dtype)(x)
     assert tnum.quantize_fn("posit8_1").fmt.kind == "posit"
-    assert tnum.quantize_fn("nf4").fmt is None
+    # every format has a kernel form: the NormalFloat codebooks carry their
+    # float32 entries, the native dtypes a cast (float32's the identity)
+    nf4 = tnum.quantize_fn("nf4").fmt
+    assert nf4.kind == "nf" and nf4.codebook == tuple(
+        tnum.nf_codebook(4).tolist())
+    assert tnum.quantize_fn("nf4_6").fmt.codebook == tuple(
+        tnum.nf_codebook(4, int_bits=6).tolist())
+    assert [tnum.quantize_fn(d).fmt.identity for d in
+            ("bfloat16", "float16", "float32")] == [False, False, True]
