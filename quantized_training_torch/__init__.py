@@ -16,14 +16,17 @@ posit8 QAT train step -- the flash backward with its error taps, the train
 step, losses and checkpoints, and 8-bit Adam with its fused packed kernel
 (``training/``); and BERT fine-tuning -- the BERT family with LoRA
 adapters, HF checkpoint conversion, the reference's command-line qspec
-flags, and 8-bit Adam's unpacked kernel.
+flags, and 8-bit Adam's unpacked kernel; and Phi-3 serving -- its
+checkpoint conversion and the GQA forms (up to 8 query heads per kv head)
+of both quantized-cache decode kernels.
 """
 
 from .cli import add_qspec_args, quant_config_from_args
 from .convert import (adam8bit_state_from_jax, bert_random_params,
                       params_from_jax, random_params)
 from .models import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
-                     BertForSequenceClassification, BertModel, convert_bert)
+                     BertForSequenceClassification, BertModel, convert_bert,
+                     convert_phi3)
 from .models.llama import LlamaConfig, LlamaForCausalLM, fuse_qkv_params
 from .qspec import QScheme, QuantizationSpec
 from .numerics import quantize_fn
@@ -39,7 +42,7 @@ __all__ = [
     "BertForSequenceClassification", "BertModel",
     "ContinuousBatchingEngine", "FUSION_LADDER", "KVCacheConfig",
     "adam8bit_state_from_jax", "add_qspec_args", "bert_random_params",
-    "convert_bert", "quant_config_from_args",
+    "convert_bert", "convert_phi3", "quant_config_from_args",
     "LlamaConfig", "LlamaForCausalLM", "OpCategory", "QConfig", "QScheme",
     "QuantConfig", "QuantizationSpec", "SamplingParams", "build_storage",
     "fake_quantize", "fold_quantized_weights", "fuse_qkv_params", "generate",

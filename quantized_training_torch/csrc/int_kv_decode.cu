@@ -20,41 +20,55 @@
 // Replaces quantized_training_tpu/ops/pallas/int_kv_attention.py:77
 // (_kernel, reached through int_kv_decode_attention) in all its forms:
 // bits 4 or 8 with bf16 dots over untransposed K (int_kv_split + merge,
-// below), and the integer-dot and K^T forms at bits 8 (int_kv_tile).
+// below), and the integer-dot and K^T forms at bits 8 (int_kv_tile).  Each
+// kernel is instantiated for G = H / KV in {1, 2, 4, 8} query heads per kv
+// head and D in {64, 128}; query head h reads kv head h / G (the reference's
+// q.reshape(B, KV, G, D), and csrc/flash_attn_fwd.cu's kvh = h / (H / KV)).
 //
 // What bounds it on an H100: the bytes of the codes, scales and residual
-// ring over 3.35 TB/s (about 88 MB per layer at 8 full slots of LLaMA-2 7B
-// with int4 codes, 155 MB with int8).
+// ring over 3.35 TB/s, read once per kv head whatever G is.  At 8 full
+// slots (P = 2048, R = 128) of one layer: LLaMA-2 7B (KV = 32) about 88 MB
+// with int4 codes, 155 MB with int8; Phi-3-medium (KV = 10, G = 4) with
+// int4 codes 21.0 MB of codes, 1.3 MB of scales and 5.2 MB of ring, about
+// 27.5 MB or 8.2 us.
 //
 // The bf16-dot forms over untransposed K: the TPU grid is one program per
-// (batch, kv head) -- 256 here, too few to keep 132 SMs' memory pipes busy
-// -- so int_kv_split splits the tokens (flash-decoding): each block takes
-// 256 tokens of the main tier (32 int4 word rows, or 256 int8 rows), or 256
-// rows of the residual ring, for one (batch, kv head), keeps
-// its scores in shared memory, and writes a partial (max, sum, f32
-// accumulator) per head; a second small kernel merges the partials.  Word
+// (batch, kv head) -- 256 at the 7B decode shape, too few to keep 132 SMs'
+// memory pipes busy -- so int_kv_split splits the tokens (flash-decoding):
+// each block takes 256 tokens of the main tier (32 int4 word rows, or 256
+// int8 rows), or 256 rows of the residual ring, for one (batch, kv head)
+// and all G query heads of it, as the TPU step reads one (G, D) q tile
+// against one cache tile: each K/V row is read once and dotted with G
+// queries.  It keeps its G rows of scores in shared memory and writes a
+// partial (max, sum, f32 accumulator) per query head; a second small
+// kernel merges the partials.  Word
 // rows holding no token below main_len are never read (plane 0 holds the
 // lowest token of a word row), so a short prompt costs only its own bytes.
-// Each warp reads whole 512-byte word rows (lane j holds d = 4j..4j+3) and
-// sign-extends a field with a left shift of the unsigned word and an
-// arithmetic right shift of its int32 reinterpretation.
+// Each warp reads whole word rows (lane j holds d = DL*j .. DL*j + DL - 1,
+// DL = D / 32) and sign-extends a field with a left shift of the unsigned
+// word and an arithmetic right shift of its int32 reinterpretation.
 //
-// The integer-dot and K^T forms (int_kv_tile): the reference quantizes
-// p * vs against one scale over the whole tile after the global softmax
-// max, so a token split would round against its own max and give other
-// int8 codes.  So one block takes one (batch, kv head), as the TPU grid
-// does, with all P scores in shared memory (4 bytes a token): it rounds
-// where the reference rounds, and both integer dots are exact, so its
-// codes equal the plain version's but where an exp differs by an ulp at a
-// rounding boundary.  B * KV blocks of 256 threads (256 at the 7B decode
-// shape) are all resident on 132 SMs at once.  Scores: over K^T each thread
+// The integer-dot and K^T forms (int_kv_tile): the reference quantizes q
+// against one scale over the whole (G, D) tile, and p * vs against one
+// scale over the whole (G, P) tile after the global softmax max, so a token
+// split would round against its own max and give other int8 codes.  So one
+// block takes one (batch, kv head), as the TPU grid does, with all G * P
+// scores in dynamic shared memory (4 bytes a token and head: 135 KB at
+// G = 8, P = 4096, R = 128; a shape whose scores and static arrays exceed
+// the card's 227 KB per block is refused, see int_kv_tile_smem): both
+// scales are block-wide reductions over the G heads.  It rounds where the
+// reference rounds, and both integer dots are exact, so its codes equal
+// the plain version's but where an exp differs by an ulp at a rounding
+// boundary.  B * KV blocks of 256 threads.  Scores: over K^T each thread
 // takes 8 consecutive tokens and walks the D rows (8-byte loads, coalesced
-// across threads); over untransposed K, 8 lanes share a 128-byte row
-// (16 bytes each) and sum with __dp4a.  Values: 8 lanes per 128-byte V
-// row, 16 codes a lane, 4 rows per warp.
+// across threads); over untransposed K, D / 16 lanes share a row (16 bytes
+// each) and sum with __dp4a.  Values: D / 16 lanes per V row, 16 codes a
+// lane, 512 / D rows per warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -136,7 +150,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // G: query heads per kv head; D: head dim (DL = D/32 values per lane).
-// int_kv_decode instantiates D=128, G=1, the LLaMA-2 7B geometry.
+// Static shared memory: qsh, sc, red and accsh, 4 bytes each: 28.0 KB at
+// G = 8, D = 128 (under the 48 KB a static array may take).
 template <int D, int G, int BITS>
 __global__ void __launch_bounds__(NTHREADS)
 int_kv_split(const uint16_t* __restrict__ q, const void* __restrict__ kc,
@@ -149,6 +164,9 @@ int_kv_split(const uint16_t* __restrict__ q, const void* __restrict__ kc,
   constexpr int DL = D / 32;
   constexpr int PER = Tier<BITS>::PER;
   constexpr int SPLIT_WORDS = Tier<BITS>::ROWS;
+  static_assert(D % 32 == 0, "a warp covers a row");
+  static_assert(4 * (G * D + G * SPLIT_TOKENS + NWARPS + NWARPS * G * D) <= 48 * 1024,
+                "static shared memory");
   __shared__ float qsh[G][D];
   __shared__ float sc[G][SPLIT_TOKENS];
   __shared__ float red[NWARPS];
@@ -362,8 +380,17 @@ __device__ __forceinline__ int sbyte(uint32_t w, int j) {
   return static_cast<int>(w << (24 - 8 * j)) >> 24;
 }
 
+// Static shared memory of int_kv_tile<D, G>: qb, q8, red and accw.
+template <int D, int G>
+__host__ __device__ constexpr int tile_static_bytes() {
+  return 4 * G * D + G * D + 4 * TILE_WARPS + 4 * TILE_WARPS * G * D;
+}
+
 // G: query heads per kv head; D: head dim.  Dynamic shared memory holds the
-// G*P main scores and the G*R residual scores (f32).
+// G*P main scores and the G*R residual scores (f32).  A row of D int8 codes
+// is LPR = D/16 lanes of 16 bytes; a warp covers RPW = 32/LPR rows.  accw
+// holds each warp's partial sums, first of the main tier, then of the ring
+// (37.0 KB static at G = 8, D = 128).
 template <int D, int G, bool INT_DOTS, bool KT>
 __global__ void __launch_bounds__(TILE_THREADS)
 int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
@@ -372,34 +399,37 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
             const uint16_t* __restrict__ vr, const int32_t* __restrict__ main_len,
             const int32_t* __restrict__ res_len, uint16_t* __restrict__ out,
             int KV, int P, int R, float scale) {
-  static_assert(D == 128, "8 lanes x 16 bytes cover a row of D int8 codes");
+  static_assert(D == 64 || D == 128, "D/16 lanes of 16 bytes cover a row");
+  static_assert(tile_static_bytes<D, G>() <= 48 * 1024, "static shared memory");
   constexpr int DL = D / 32;
+  constexpr int LPR = D / 16;                 // lanes per row
+  constexpr int RPW = 32 / LPR;               // rows per warp
+  constexpr int OPT = (G * D + TILE_THREADS - 1) / TILE_THREADS;  // outputs a thread
   extern __shared__ float dyn[];
   float* sc = dyn;           // [G][P]: scores, then p * vs (bf16) or p8
   float* scr = dyn + G * P;  // [G][R]: residual scores, then bf16(p)
   __shared__ float qb[G][D];
   __shared__ __align__(16) int8_t q8[G][D];
   __shared__ float red[TILE_WARPS];
-  __shared__ int acc_i[TILE_WARPS][G][D];
-  __shared__ float acc_f[TILE_WARPS][G][D];
-  __shared__ float acc_r[TILE_WARPS][G][D];
+  __shared__ float accw[TILE_WARPS][G][D];    // int sums as their bits
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int sub = lane & 7;   // a lane's 16 codes of a 128-byte row
-  const int rsub = lane >> 3; // a warp's 4 rows
+  const int sub = lane % LPR;  // a lane's 16 codes of a row
+  const int rsub = lane / LPR; // a warp's RPW rows
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int ml = min(max(main_len[b], 0), P);
   const int rl = min(max(res_len[b], 0), R);
   const size_t bk = static_cast<size_t>(b) * KV + kvh;
 
-  // ---- q: q * scale, its bf16 rounding and (integer dots) its int8 codes
+  // ---- q: q * scale, its bf16 rounding and (integer dots) its int8 codes,
+  // one scale over the whole (G, D) tile: query head kvh*G + g is row g
   float qmax = 0.f;
-  float qfv[(G * D + TILE_THREADS - 1) / TILE_THREADS];
+  float qfv[OPT];
 #pragma unroll
-  for (int k = 0; k * TILE_THREADS < G * D; ++k) {
+  for (int k = 0; k < OPT; ++k) {
     const int idx = tid + k * TILE_THREADS;
     qfv[k] = 0.f;
     if (idx < G * D) {
@@ -413,7 +443,7 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
   if (INT_DOTS) {
     qs = __fdiv_rn(fmaxf(block_max<TILE_WARPS>(qmax, red), 1e-30f), 127.f);
 #pragma unroll
-    for (int k = 0; k * TILE_THREADS < G * D; ++k) {
+    for (int k = 0; k < OPT; ++k) {
       const int idx = tid + k * TILE_THREADS;
       if (idx < G * D)
         q8[idx / D][idx % D] = static_cast<int8_t>(
@@ -458,14 +488,14 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
                 : __fmul_rn(af[g][j], ksp[t]);
         }
     }
-  } else {  // untransposed K, integer dots: 8 lanes per row, __dp4a
+  } else {  // untransposed K, integer dots: LPR lanes per row, __dp4a
     const int8_t* kb = kc + bk * static_cast<size_t>(P) * D;  // (P, D)
     int qw[G][4];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int j = 0; j < 4; ++j) qw[g][j] = reinterpret_cast<const int*>(q8[g])[4 * sub + j];
-    for (int t0 = 4 * warp; t0 < ml; t0 += 4 * TILE_WARPS) {
+    for (int t0 = RPW * warp; t0 < ml; t0 += RPW * TILE_WARPS) {
       const int t = t0 + rsub;
       int4 w = make_int4(0, 0, 0, 0);
       if (t < ml) w = *reinterpret_cast<const int4*>(kb + static_cast<size_t>(t) * D + 16 * sub);
@@ -475,9 +505,8 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
         a = __dp4a(w.y, qw[g][1], a);
         a = __dp4a(w.z, qw[g][2], a);
         a = __dp4a(w.w, qw[g][3], a);
-        a += __shfl_xor_sync(0xffffffffu, a, 1);
-        a += __shfl_xor_sync(0xffffffffu, a, 2);
-        a += __shfl_xor_sync(0xffffffffu, a, 4);
+#pragma unroll
+        for (int o = 1; o < LPR; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
         if (sub == 0 && t < ml)
           sc[g * P + t] = __fmul_rn(static_cast<float>(a), __fmul_rn(ksp[t], qs));
       }
@@ -501,7 +530,7 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
   }
   __syncthreads();
 
-  // ---- one softmax over [main; residual] per query row ---------------------
+  // ---- one softmax over [main; residual] per query row; pmax over all G ----
   const float* vsp = vsc + bk * P;
   float l_g[G];
   float pmax = 0.f;
@@ -537,7 +566,7 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
   }
   __syncthreads();
 
-  // ---- weighted values: main tier, 8 lanes per 128-byte row ---------------
+  // ---- weighted values: main tier, LPR lanes per row ---------------------
   const int8_t* vb = vc + bk * static_cast<size_t>(P) * D;
   int vi[G][16];
   float vf[G][16];
@@ -545,7 +574,7 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int j = 0; j < 16; ++j) vi[g][j] = 0, vf[g][j] = 0.f;
-  for (int t = 4 * warp + rsub; t < ml; t += 4 * TILE_WARPS) {
+  for (int t = RPW * warp + rsub; t < ml; t += RPW * TILE_WARPS) {
     const int4 w = *reinterpret_cast<const int4*>(vb + static_cast<size_t>(t) * D + 16 * sub);
     const uint32_t wv[4] = {static_cast<uint32_t>(w.x), static_cast<uint32_t>(w.y),
                             static_cast<uint32_t>(w.z), static_cast<uint32_t>(w.w)};
@@ -566,15 +595,35 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       if (INT_DOTS) {
-        vi[g][j] += __shfl_xor_sync(0xffffffffu, vi[g][j], 8);
-        vi[g][j] += __shfl_xor_sync(0xffffffffu, vi[g][j], 16);
-        if (rsub == 0) acc_i[warp][g][16 * sub + j] = vi[g][j];
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1) vi[g][j] += __shfl_xor_sync(0xffffffffu, vi[g][j], o);
+        if (rsub == 0) accw[warp][g][16 * sub + j] = __int_as_float(vi[g][j]);
       } else {
-        vf[g][j] += __shfl_xor_sync(0xffffffffu, vf[g][j], 8);
-        vf[g][j] += __shfl_xor_sync(0xffffffffu, vf[g][j], 16);
-        if (rsub == 0) acc_f[warp][g][16 * sub + j] = vf[g][j];
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1) vf[g][j] += __shfl_xor_sync(0xffffffffu, vf[g][j], o);
+        if (rsub == 0) accw[warp][g][16 * sub + j] = vf[g][j];
       }
     }
+  __syncthreads();
+  float main_o[OPT];
+#pragma unroll
+  for (int k = 0; k < OPT; ++k) {
+    const int idx = tid + k * TILE_THREADS;
+    main_o[k] = 0.f;
+    if (idx < G * D) {
+      const int g = idx / D, d = idx % D;
+      if (INT_DOTS) {
+        int a = 0;
+#pragma unroll
+        for (int w = 0; w < TILE_WARPS; ++w) a += __float_as_int(accw[w][g][d]);
+        main_o[k] = __fmul_rn(static_cast<float>(a), ps);
+      } else {
+#pragma unroll
+        for (int w = 0; w < TILE_WARPS; ++w) main_o[k] += accw[w][g][d];
+      }
+    }
+  }
+  __syncthreads();
 
   // ---- weighted values: residual ring -------------------------------------
   float ar[G][DL];
@@ -595,27 +644,35 @@ int_kv_tile(const uint16_t* __restrict__ q, const int8_t* __restrict__ kc,
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < DL; ++j) acc_r[warp][g][DL * lane + j] = ar[g][j];
+    for (int j = 0; j < DL; ++j) accw[warp][g][DL * lane + j] = ar[g][j];
   __syncthreads();
 
-  for (int idx = tid; idx < G * D; idx += TILE_THREADS) {
-    const int g = idx / D, d = idx % D;
-    float main = 0.f, res = 0.f;
-    if (INT_DOTS) {
-      int a = 0;
 #pragma unroll
-      for (int w = 0; w < TILE_WARPS; ++w) a += acc_i[w][g][d];
-      main = __fmul_rn(static_cast<float>(a), ps);
-    } else {
+  for (int k = 0; k < OPT; ++k) {
+    const int idx = tid + k * TILE_THREADS;
+    if (idx < G * D) {
+      const int g = idx / D, d = idx % D;
+      float res = 0.f;
 #pragma unroll
-      for (int w = 0; w < TILE_WARPS; ++w) main += acc_f[w][g][d];
+      for (int w = 0; w < TILE_WARPS; ++w) res += accw[w][g][d];
+      const float l = l_g[g];
+      const float val = round_bf16(__fdiv_rn(__fadd_rn(main_o[k], res), l == 0.f ? 1.f : l));
+      out[bk * G * D + idx] = static_cast<uint16_t>(__float_as_uint(val) >> 16);
     }
-#pragma unroll
-    for (int w = 0; w < TILE_WARPS; ++w) res += acc_r[w][g][d];
-    const float l = l_g[g];
-    const float val = round_bf16(__fdiv_rn(__fadd_rn(main, res), l == 0.f ? 1.f : l));
-    out[bk * G * D + idx] = static_cast<uint16_t>(__float_as_uint(val) >> 16);
   }
+}
+
+// Shared memory of one whole-tile launch (static + dynamic) and the most a
+// block of this card may opt in to.
+template <int D, int G>
+cudaError_t tile_smem(int P, int R, long long* need, long long* avail) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *need = tile_static_bytes<D, G>() + 4LL * G * (static_cast<long long>(P) + R);
+  *avail = optin;
+  return e;
 }
 
 template <int D, int G, bool INT_DOTS, bool KT>
@@ -624,10 +681,14 @@ int launch_tile(int B, int KV, int P, int R, cudaStream_t st, const void* q,
                 const void* vs, const void* kr, const void* vr,
                 const void* ml, const void* rl, void* out, float scale) {
   auto kern = int_kv_tile<D, G, INT_DOTS, KT>;
+  long long need = 0, avail = 0;
+  cudaError_t e = tile_smem<D, G>(P, R, &need, &avail);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (need > avail) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(G) * (P + R) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (smem + tile_static_bytes<D, G>() > 48 * 1024) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kern<<<dim3(KV, B), TILE_THREADS, smem, st>>>(
@@ -658,6 +719,24 @@ void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kc,
       static_cast<const int32_t*>(rl), mp, lp, ap, KV, P, R, scale, n_main);
 }
 
+// Calls f(D, G) as std::integral_constants for an instantiated head dim D
+// in {64, 128} and group G in {1, 2, 4, 8}; false for any other pair.
+template <typename F>
+bool with_dg(int D, int G, F&& f) {
+  auto at = [&](auto d) {
+    switch (G) {
+      case 1: f(d, std::integral_constant<int, 1>{}); return true;
+      case 2: f(d, std::integral_constant<int, 2>{}); return true;
+      case 4: f(d, std::integral_constant<int, 4>{}); return true;
+      case 8: f(d, std::integral_constant<int, 8>{}); return true;
+      default: return false;
+    }
+  };
+  if (D == 64) return at(std::integral_constant<int, 64>{});
+  if (D == 128) return at(std::integral_constant<int, 128>{});
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
@@ -675,7 +754,7 @@ int int_kv_num_splits(int P, int R) {
 
 // All tensors contiguous.  m_part/l_part (B, H, NS) and acc_part
 // (B, H, NS, D) f32 are scratch, NS = int_kv_num_splits(P, R).
-// D == 128; H == KV (no GQA); bits 4 (P % 8 == 0) or 8.
+// D in {64, 128}; G = H / KV in {1, 2, 4, 8}; bits 4 (P % 8 == 0) or 8.
 int int_kv_decode(const void* q, const void* k_codes, const void* k_scale,
                   const void* v_codes, const void* v_scale, const void* k_res,
                   const void* v_res, const void* main_len, const void* res_len,
@@ -683,23 +762,21 @@ int int_kv_decode(const void* q, const void* k_codes, const void* k_scale,
                   int H, int KV, int D, int P, int R, int bits, float scale,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV || (bits != 4 && bits != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_main = n_main_splits(P);
   const int NS = int_kv_num_splits(P, R);
-  const int G = H / KV;
   dim3 grid(NS, KV, B);
   auto* mp = static_cast<float*>(m_part);
   auto* lp = static_cast<float*>(l_part);
   auto* ap = static_cast<float*>(acc_part);
-#define QT_LAUNCH(DD, GG, BB)                                              \
-  launch_split<DD, GG, BB>(grid, st, q, k_codes, k_scale, v_codes, v_scale,  \
-                           k_res, v_res, main_len, res_len, mp, lp, ap, KV,  \
-                           P, R, scale, n_main)
-  // Only the served geometry is instantiated (and checked on the card);
-  // another (D, G) pair is one more line here and one more check.
-  if (D == 128 && G == 1 && bits == 4) QT_LAUNCH(128, 1, 4);
-  else if (D == 128 && G == 1 && bits == 8) QT_LAUNCH(128, 1, 8);
-  else return static_cast<int>(cudaErrorInvalidValue);
-#undef QT_LAUNCH
+  const bool taken = with_dg(D, H / KV, [&](auto d, auto g) {
+    constexpr int DD = decltype(d)::value, GG = decltype(g)::value;
+    auto launch = bits == 4 ? launch_split<DD, GG, 4> : launch_split<DD, GG, 8>;
+    launch(grid, st, q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
+           main_len, res_len, mp, lp, ap, KV, P, R, scale, n_main);
+  });
+  if (!taken) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int_kv_merge<<<B * H, D, 0, st>>>(mp, lp, ap, static_cast<uint16_t*>(out),
@@ -707,10 +784,23 @@ int int_kv_decode(const void* q, const void* k_codes, const void* k_scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory a whole-tile launch at (D, G, P, R) needs, static arrays
+// and dynamic scores, in *need; the most this card lets a block opt in to,
+// in *avail.  The caller refuses a shape whose need exceeds it.
+int int_kv_tile_smem(int D, int G, int P, int R, long long* need,
+                     long long* avail) {
+  cudaError_t e = cudaErrorInvalidValue;
+  with_dg(D, G, [&](auto d, auto g) {
+    e = tile_smem<decltype(d)::value, decltype(g)::value>(P, R, need, avail);
+  });
+  return static_cast<int>(e);
+}
+
 // The integer-dot (int_dots) and K^T (k_transposed) forms at int8 codes:
 // one block per (batch, kv head), no scratch.  k_codes is (B, KV, D, P)
-// when k_transposed, else (B, KV, P, D); D == 128, H == KV, P % 8 == 0,
-// every pointer 16-byte aligned.
+// when k_transposed, else (B, KV, P, D); D in {64, 128}, G = H / KV in
+// {1, 2, 4, 8}, P % 8 == 0, every pointer 16-byte aligned, and the shared
+// memory of int_kv_tile_smem within the card's opt-in maximum.
 int int_kv_decode_tile(const void* q, const void* k_codes, const void* k_scale,
                        const void* v_codes, const void* v_scale,
                        const void* k_res, const void* v_res,
@@ -718,16 +808,18 @@ int int_kv_decode_tile(const void* q, const void* k_codes, const void* k_scale,
                        int B, int H, int KV, int D, int P, int R, int int_dots,
                        int k_transposed, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 128 || H != KV || P % 8) return static_cast<int>(cudaErrorInvalidValue);
-#define QT_TILE(ID, KT)                                                       \
-  return launch_tile<128, 1, ID, KT>(B, KV, P, R, st, q, k_codes, k_scale,    \
-                                     v_codes, v_scale, k_res, v_res,          \
-                                     main_len, res_len, out, scale)
-  if (int_dots && k_transposed) QT_TILE(true, true);
-  if (int_dots) QT_TILE(true, false);
-  if (k_transposed) QT_TILE(false, true);
-#undef QT_TILE
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (KV <= 0 || H % KV || P % 8 || !(int_dots || k_transposed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  with_dg(D, H / KV, [&](auto d, auto g) {
+    constexpr int DD = decltype(d)::value, GG = decltype(g)::value;
+    auto launch = int_dots ? (k_transposed ? launch_tile<DD, GG, true, true>
+                                           : launch_tile<DD, GG, true, false>)
+                           : launch_tile<DD, GG, false, true>;
+    err = launch(B, KV, P, R, st, q, k_codes, k_scale, v_codes, v_scale,
+                 k_res, v_res, main_len, res_len, out, scale);
+  });
+  return err;
 }
 
 }  // extern "C"

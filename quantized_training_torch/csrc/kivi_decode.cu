@@ -18,25 +18,35 @@
 // Replaces quantized_training_tpu/ops/pallas/kivi_attention.py:76 (_kernel,
 // reached through kivi_decode_attention), whose grid is one program per
 // (batch, kv head) and whose group expansions are 0/1 matmuls on the MXU.
+// Instantiated for G = H / KV in {1, 2, 4, 8} query heads per kv head and
+// D in {64, 128}, each for uint2 and uint4 words and uint8 codes; query head
+// h reads kv head h / G.
 //
 // What bounds it on an H100: the bytes of codes, qparams and residual ring
-// over 3.35 TB/s (about 67 MB per layer for LLaMA-2 7B at 8 full slots with
-// uint2 codes, P = 2048, R = 128).  As in csrc/int_kv_decode.cu the tokens
+// over 3.35 TB/s, read once per kv head whatever G is (at 8 full slots, P =
+// 2048, R = 128, uint2 codes: about 67 MB per layer for LLaMA-2 7B, KV = 32;
+// about 21 MB or 6.3 us for Phi-3-medium, KV = 10, G = 4: 10.5 MB of words,
+// 5.2 MB of qparams, 5.2 MB of ring).  As in csrc/int_kv_decode.cu the tokens
 // are split over blocks (flash-decoding): each block takes 32 word rows of
 // the main tier (512 uint2 or 256 uint4 tokens; 256 tokens of bytes) or 256
-// rows of the residual ring for one (batch, kv head), writes a partial (max,
+// rows of the residual ring for one (batch, kv head) and all G query heads
+// of it, writes a partial (max,
 // sum, f32 accumulator, f32 V zero-point term) per query head, and a merge
 // kernel combines them; the V zero-point term is merged before it is rounded
 // to bf16, as the TPU rounds it once over all tokens.  p is rounded against
 // each split's own max (the TPU: the global max).  The K zero-point constant
-// of each token group the split touches is computed once per block into
-// shared memory; word rows holding no token below main_len are never read.
+// q . bf16((mid - kz[g]) ks[g]) of each token group the split touches is
+// computed once per block and query head into shared memory, all G heads
+// against the one kz/ks of their kv head; word rows holding no token below
+// main_len are never read.
 // A warp reads whole rows (lane j holds features DL*j .. DL*j + DL - 1) and
 // sign-extends a field with a left shift of the unsigned word and an
 // arithmetic right shift of its int32 reinterpretation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -134,12 +144,20 @@ kivi_split(const uint16_t* __restrict__ q, const void* __restrict__ kc,
   constexpr int MID = Tier<BITS>::MID;
   constexpr int TOK = (ROWS * PER > RES_TOKENS) ? ROWS * PER : RES_TOKENS;
   static_assert(ROWS * PER <= MAX_TOKENS, "split too large");
+  static_assert(D % 32 == 0, "a warp covers a row");
+  static_assert(NWARPS * 32 <= MAX_GROUPS, "o2sh fits in kcs");
+  // qsh, sc, kcs (o2sh), red and accsh: 44.0 KB at G = 8, D = 128, uint2
+  static_assert(4 * (G * D + G * TOK + G * MAX_GROUPS + NWARPS + NWARPS * G * D)
+                <= 48 * 1024, "static shared memory");
   __shared__ float qsh[G][D];
   __shared__ float sc[G][TOK];
-  __shared__ float kcs[G][MAX_GROUPS];
+  // kcs[g][gk]: the K zero-point constants, read only by the scores; the
+  // same memory then holds o2sh[warp][g][lane], the V zero-point partials
+  __shared__ float kcs_o2[G * MAX_GROUPS];
   __shared__ float red[NWARPS];
   __shared__ float accsh[NWARPS][G][D];
-  __shared__ float o2sh[NWARPS][G][32];
+  float (*kcs)[MAX_GROUPS] = reinterpret_cast<float (*)[MAX_GROUPS]>(kcs_o2);
+  float (*o2sh)[G][32] = reinterpret_cast<float (*)[G][32]>(kcs_o2);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -411,6 +429,24 @@ void launch_split(dim3 grid, cudaStream_t st, const void* const* t, float* mp,
       scale, n_main);
 }
 
+// Calls f(D, G) as std::integral_constants for an instantiated head dim D
+// in {64, 128} and group G in {1, 2, 4, 8}; false for any other pair.
+template <typename F>
+bool with_dg(int D, int G, F&& f) {
+  auto at = [&](auto d) {
+    switch (G) {
+      case 1: f(d, std::integral_constant<int, 1>{}); return true;
+      case 2: f(d, std::integral_constant<int, 2>{}); return true;
+      case 4: f(d, std::integral_constant<int, 4>{}); return true;
+      case 8: f(d, std::integral_constant<int, 8>{}); return true;
+      default: return false;
+    }
+  };
+  if (D == 64) return at(std::integral_constant<int, 64>{});
+  if (D == 128) return at(std::integral_constant<int, 128>{});
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
@@ -427,8 +463,9 @@ int kivi_num_splits(int P, int R, int bits) {
 
 // All tensors contiguous.  m_part/l_part (B, H, NS), acc_part (B, H, NS, D)
 // and o2_part (B, H, NS, gD) f32 are scratch, NS = kivi_num_splits(P, R,
-// bits).  (D, H/KV) is (128, 1) or (64, 2); bits_k == bits_v in {0, 2, 4}
-// (0: uint8 codes); at most 256 K groups (gP); (D/gD) % (D/32) == 0.
+// bits).  D in {64, 128}, G = H / KV in {1, 2, 4, 8}; bits_k == bits_v in
+// {0, 2, 4} (0: uint8 codes); at most 256 K groups (gP); (D/gD) % (D/32)
+// == 0 (a V group spans whole lanes).
 int kivi_decode(const void* q, const void* k_codes, const void* k_scale,
                 const void* k_zp, const void* v_codes, const void* v_scale,
                 const void* v_zp, const void* k_res, const void* v_res,
@@ -437,12 +474,13 @@ int kivi_decode(const void* q, const void* k_codes, const void* k_scale,
                 int H, int KV, int D, int P, int R, int gP, int gD, int bits_k,
                 int bits_v, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits_k != bits_v || gP > MAX_GROUPS || gP <= 0 || gD <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int bits = bits_k;
+  if (bits_k != bits_v || (bits != 0 && bits != 2 && bits != 4) ||
+      gP > MAX_GROUPS || gP <= 0 || gD <= 0 || KV <= 0 || H % KV ||
+      D % gD || (D / gD) % (D / 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_main = n_main_splits(P, bits);
   const int NS = kivi_num_splits(P, R, bits);
-  const int G = H / KV;
   dim3 grid(NS, KV, B);
   const void* t[11] = {q, k_codes, k_scale, k_zp, v_codes, v_scale, v_zp,
                        k_res, v_res, main_len, res_len};
@@ -450,19 +488,13 @@ int kivi_decode(const void* q, const void* k_codes, const void* k_scale,
   auto* lp = static_cast<float*>(l_part);
   auto* ap = static_cast<float*>(acc_part);
   auto* op = static_cast<float*>(o2_part);
-#define QT_LAUNCH(DD, GG, BB) \
-  launch_split<DD, GG, BB>(grid, st, t, mp, lp, ap, op, KV, P, R, gP, gD, scale, n_main)
-  // The served geometry (LLaMA-2 7B and 13B: D=128, H=KV) and the CPU
-  // tests' (D=64, two query heads per kv head), each for uint8, uint2 and
-  // uint4 codes.
-  if (D == 128 && G == 1 && bits == 2) QT_LAUNCH(128, 1, 2);
-  else if (D == 128 && G == 1 && bits == 4) QT_LAUNCH(128, 1, 4);
-  else if (D == 128 && G == 1 && bits == 0) QT_LAUNCH(128, 1, 0);
-  else if (D == 64 && G == 2 && bits == 2) QT_LAUNCH(64, 2, 2);
-  else if (D == 64 && G == 2 && bits == 4) QT_LAUNCH(64, 2, 4);
-  else if (D == 64 && G == 2 && bits == 0) QT_LAUNCH(64, 2, 0);
-  else return static_cast<int>(cudaErrorInvalidValue);
-#undef QT_LAUNCH
+  const bool taken = with_dg(D, H / KV, [&](auto d, auto g) {
+    constexpr int DD = decltype(d)::value, GG = decltype(g)::value;
+    auto launch = bits == 2 ? launch_split<DD, GG, 2>
+                : bits == 4 ? launch_split<DD, GG, 4> : launch_split<DD, GG, 0>;
+    launch(grid, st, t, mp, lp, ap, op, KV, P, R, gP, gD, scale, n_main);
+  });
+  if (!taken) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   kivi_merge<<<B * H, D, 0, st>>>(mp, lp, ap, op, static_cast<uint16_t*>(out),

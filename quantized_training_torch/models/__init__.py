@@ -2,8 +2,8 @@
 
 from .bert import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
                    BertForSequenceClassification, BertModel)
-from .hf_loader import (convert_bert, convert_llama, load_state_dict_dir,
-                        maybe_fuse_qkv)
+from .hf_loader import (convert_bert, convert_llama, convert_phi3,
+                        load_state_dict_dir, maybe_fuse_qkv)
 from .layers import (Embed, FakeQuant, NoNorm, QDense, QLayerNorm,
                      QLoRADense, QRMSNorm, QSoftmax, QuantMixin,
                      bwd_quantize)
@@ -14,6 +14,6 @@ __all__ = [
     "BertForSequenceClassification", "BertModel", "Embed", "FakeQuant",
     "LlamaConfig", "LlamaForCausalLM", "NoNorm", "QDense", "QLayerNorm",
     "QLoRADense", "QRMSNorm", "QSoftmax", "QuantMixin", "bwd_quantize",
-    "convert_bert", "convert_llama", "fuse_qkv_params", "load_state_dict_dir",
-    "maybe_fuse_qkv",
+    "convert_bert", "convert_llama", "convert_phi3", "fuse_qkv_params",
+    "load_state_dict_dir", "maybe_fuse_qkv",
 ]

@@ -18,8 +18,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["convert_bert", "convert_llama", "load_state_dict_dir",
-           "maybe_fuse_qkv"]
+__all__ = ["convert_bert", "convert_llama", "convert_phi3",
+           "load_state_dict_dir", "maybe_fuse_qkv"]
 
 _SAFETENSORS_DTYPES = {"F32": torch.float32, "BF16": torch.bfloat16,
                        "F16": torch.float16}
@@ -152,6 +152,42 @@ def convert_llama(state: Mapping, num_layers: int,
                f"{hf}.post_attention_layernorm")
     _norm_(p, "model.norm", state, "model.norm")
     if not tie_word_embeddings and "lm_head.weight" in state:
+        _dense(p, "lm_head", state, "lm_head")
+    return p
+
+
+def convert_phi3(state: Mapping, num_layers: int, num_heads: int,
+                 num_kv_heads: int, head_dim: int) -> Dict[str, torch.Tensor]:
+    """HF Phi3ForCausalLM state dict -> the state dict of this package's
+    LlamaForCausalLM (unfused q/k/v).
+
+    Phi-3 is LLaMA with fused projections: ``qkv_proj`` (rows q, then k,
+    then v: ``num_heads * head_dim`` and twice ``num_kv_heads * head_dim``)
+    splits into q/k/v, and ``gate_up_proj`` into gate and up at half its
+    rows.  ``maybe_fuse_qkv`` then builds the group-interleaved fused
+    layout when the config asks for it."""
+    p: Dict[str, torch.Tensor] = {}
+    _embed(p, "model.embed_tokens", state, "model.embed_tokens")
+    q_rows = num_heads * head_dim
+    kv_rows = num_kv_heads * head_dim
+    for i in range(num_layers):
+        hf, ours = f"model.layers.{i}", f"model.layers.{i}"
+        qkv = _np(state[f"{hf}.self_attn.qkv_proj.weight"])
+        _set(p, f"{ours}.self_attn.q_proj.kernel", qkv[:q_rows].T)
+        _set(p, f"{ours}.self_attn.k_proj.kernel",
+             qkv[q_rows:q_rows + kv_rows].T)
+        _set(p, f"{ours}.self_attn.v_proj.kernel", qkv[q_rows + kv_rows:].T)
+        _dense(p, f"{ours}.self_attn.o_proj", state, f"{hf}.self_attn.o_proj")
+        gate_up = _np(state[f"{hf}.mlp.gate_up_proj.weight"])
+        inter = gate_up.shape[0] // 2
+        _set(p, f"{ours}.mlp.gate_proj.kernel", gate_up[:inter].T)
+        _set(p, f"{ours}.mlp.up_proj.kernel", gate_up[inter:].T)
+        _dense(p, f"{ours}.mlp.down_proj", state, f"{hf}.mlp.down_proj")
+        _norm_(p, f"{ours}.input_layernorm", state, f"{hf}.input_layernorm")
+        _norm_(p, f"{ours}.post_attention_layernorm", state,
+               f"{hf}.post_attention_layernorm")
+    _norm_(p, "model.norm", state, "model.norm")
+    if "lm_head.weight" in state:
         _dense(p, "lm_head", state, "lm_head")
     return p
 

@@ -44,7 +44,7 @@ import torch
 
 from . import _cuda
 
-__all__ = ["int_kv_decode_attention", "int_kv_decode_plain"]
+__all__ = ["KERNEL_DG", "int_kv_decode_attention", "int_kv_decode_plain"]
 
 NEG_INF = -2.0 ** 30
 
@@ -132,6 +132,11 @@ def int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
     return (acc / denom).to(q.dtype).reshape(B, H, D)
 
 
+# The (head dim D, query heads per kv head G) pairs the kernels are
+# instantiated for (csrc/int_kv_decode.cu, with_dg), in every form.
+KERNEL_DG = tuple((d, g) for d in (64, 128) for g in (1, 2, 4, 8))
+
+
 def _lib():
     lib = _cuda.load("int_kv_decode")
     if lib.int_kv_decode.argtypes is None:
@@ -144,7 +149,25 @@ def _lib():
         lib.int_kv_decode_tile.argtypes = [vp] * 10 + [ci] * 8 + [
             ctypes.c_float, vp]
         lib.int_kv_decode_tile.restype = ci
+        ptr = ctypes.POINTER(ctypes.c_longlong)
+        lib.int_kv_tile_smem.argtypes = [ci] * 4 + [ptr, ptr]
+        lib.int_kv_tile_smem.restype = ci
     return lib
+
+
+def _check_tile_smem(lib, D: int, G: int, P: int, R: int) -> None:
+    """The whole-tile kernel keeps all G * (P + R) scores in shared memory:
+    refuse a shape that needs more than the card gives one block."""
+    need, avail = ctypes.c_longlong(), ctypes.c_longlong()
+    _cuda.check(lib, lib.int_kv_tile_smem(D, G, P, R, ctypes.byref(need),
+                                          ctypes.byref(avail)),
+                "int_kv_tile_smem")
+    if need.value > avail.value:
+        raise ValueError(
+            f"int_kv_decode_attention kernel: the integer-dot / K^T form at "
+            f"G={G} D={D} keeps G*(P+R) = {G * (P + R)} f32 scores in shared "
+            f"memory, {need.value} bytes with its static arrays, above the "
+            f"{avail.value} bytes this card gives one block (P={P} R={R})")
 
 
 def int_kv_decode_attention(
@@ -156,10 +179,13 @@ def int_kv_decode_attention(
     returns (B, H, D) in q's dtype.  The defaults are the reference's.
 
     CPU tensors take :func:`int_kv_decode_plain`; CUDA tensors launch the
-    kernel, and anything it does not take raises.  The bf16-dot forms over
-    untransposed codes launch the split kernel (counted in ``launches``);
-    the integer-dot and K^T forms launch the whole-tile kernel (counted in
-    ``tile_launches``).
+    kernel, and anything it does not take raises: the kernels are built for
+    head dim D in (64, 128) with G = H / KV in (1, 2, 4, 8) query heads per
+    kv head (``KERNEL_DG``).  The bf16-dot forms over untransposed codes
+    launch the split kernel (counted in ``launches``); the integer-dot and
+    K^T forms launch the whole-tile kernel (counted in ``tile_launches``),
+    which refuses a (G, P, R) whose scores do not fit one block's shared
+    memory (G = 8 takes P + R up to about 6000 on an H100).
     """
     _check_form(bits, int_dots, k_transposed)
     B, H, D = q.shape
@@ -188,7 +214,8 @@ def int_kv_decode_attention(
                         "float32 expected")
     v_shape = (B, KV, P // 8 if bits == 4 else P, D)
     k_shape = (B, KV, D, P) if k_transposed else v_shape
-    if H != KV or D != 128 or P % 8 or tuple(k_codes.shape) != k_shape \
+    if H % KV or (D, H // KV) not in KERNEL_DG or P % 8 \
+            or tuple(k_codes.shape) != k_shape \
             or tuple(v_codes.shape) != v_shape \
             or tuple(k_scale.shape) != (B, KV, 1, P) \
             or tuple(v_scale.shape) != (B, KV, 1, P) \
@@ -198,8 +225,8 @@ def int_kv_decode_attention(
         problems.append(
             f"shapes q {tuple(q.shape)} codes {tuple(k_codes.shape)} "
             f"scales {tuple(k_scale.shape)} res {tuple(k_res.shape)} "
-            f"lens {tuple(main_len.shape)} (the kernel takes D=128, H=KV, "
-            "P % 8 == 0)")
+            f"lens {tuple(main_len.shape)} (the kernels take D in (64, 128) "
+            f"with G = H/KV in (1, 2, 4, 8), P % 8 == 0)")
     tensors = (q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
                main_len, res_len)
     tile = int_dots or k_transposed
@@ -211,6 +238,8 @@ def int_kv_decode_attention(
         raise ValueError("int_kv_decode_attention kernel: "
                          + "; ".join(problems))
     lib = _lib()
+    if tile:
+        _check_tile_smem(lib, D, H // KV, P, R)
     out = torch.empty_like(q)
     stream = _cuda.stream_ptr(q.device)
     if tile:

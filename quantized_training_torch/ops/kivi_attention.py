@@ -36,9 +36,13 @@ import torch
 
 from . import _cuda
 
-__all__ = ["kivi_decode_attention", "kivi_decode_plain"]
+__all__ = ["KERNEL_DG", "kivi_decode_attention", "kivi_decode_plain"]
 
 NEG_INF = -2.0 ** 30
+
+# The (head dim D, query heads per kv head G) pairs the kernel is
+# instantiated for (csrc/kivi_decode.cu, with_dg), in every cache form.
+KERNEL_DG = tuple((d, g) for d in (64, 128) for g in (1, 2, 4, 8))
 
 
 def _unpack_planar(codes: torch.Tensor, bits: Optional[int]) -> torch.Tensor:
@@ -55,6 +59,13 @@ def _unpack_planar(codes: torch.Tensor, bits: Optional[int]) -> torch.Tensor:
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     """Round f32 to bf16 and back (the kernel's rounding points)."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _k_group_constants(qb, ks, kz, mid):
+    """Each query head's K zero-point constant of each K token group,
+    bf16(qb . bf16((mid - kz) ks)): (B, KV, G, gP).  The G heads of a kv
+    head each dot their own q with its one kz/ks."""
+    return _bf16(torch.matmul(qb, _bf16((mid - kz) * ks).transpose(-1, -2)))
 
 
 def kivi_decode_plain(q, k_codes, k_scale, k_zp, v_codes, v_scale, v_zp,
@@ -85,8 +96,8 @@ def kivi_decode_plain(q, k_codes, k_scale, k_zp, v_codes, v_scale, v_zp,
     qb = _bf16(q.to(f32).reshape(B, KV, G, D) * scale)
     khat = _bf16(kc * ks.repeat_interleave(bsP, dim=2))
     s_main = torch.matmul(qb, khat.transpose(-1, -2))        # (B,KV,G,P)
-    kconst = torch.matmul(qb, _bf16((mid_k - kz) * ks).transpose(-1, -2))
-    s_main = s_main + _bf16(kconst).repeat_interleave(bsP, dim=-1)
+    s_main = s_main + _k_group_constants(qb, ks, kz, mid_k).repeat_interleave(
+        bsP, dim=-1)
     t_idx = torch.arange(P, device=q.device)
     s_main = torch.where(t_idx < main_len.reshape(B, 1, 1, 1), s_main,
                          torch.full_like(s_main, NEG_INF))
@@ -132,7 +143,9 @@ def kivi_decode_attention(
     codes, None for one uint8 code per element.
 
     CPU tensors take :func:`kivi_decode_plain`; CUDA tensors launch the
-    kernel, and anything it does not take raises.
+    kernel, and anything it does not take raises: it is built for head dim
+    D in (64, 128) with G = H / KV in (1, 2, 4, 8) query heads per kv head
+    (``KERNEL_DG``), for each cache form.
     """
     B, H, D = q.shape
     if scale is None:
@@ -165,7 +178,7 @@ def kivi_decode_attention(
         problems.append("scales and zero points must be bf16")
     if main_len.dtype != torch.int32 or res_len.dtype != torch.int32:
         problems.append("lengths must be int32")
-    if H % KV or (D, H // KV) not in ((128, 1), (64, 2)) \
+    if H % KV or (D, H // KV) not in KERNEL_DG \
             or gP == 0 or gP > 256 or P % gP or gD == 0 or D % gD \
             or (D // gD) % (D // 32) \
             or tuple(k_scale.shape) != (B, KV, gP, D) \
@@ -177,8 +190,9 @@ def kivi_decode_attention(
         problems.append(
             f"shapes q {tuple(q.shape)} k scale {tuple(k_scale.shape)} "
             f"v scale {tuple(v_scale.shape)} res {tuple(k_res.shape)} lens "
-            f"{tuple(main_len.shape)} (the kernel takes D=128 with H=KV and "
-            f"D=64 with H=2*KV)")
+            f"{tuple(main_len.shape)} (the kernel takes D in (64, 128) with "
+            f"G = H/KV in (1, 2, 4, 8), at most 256 K groups, and V groups "
+            f"of a multiple of D/32 features)")
     tensors = (q, k_codes, k_scale, k_zp, v_codes, v_scale, v_zp, k_res,
                v_res, main_len, res_len)
     if any(not t.is_contiguous() or t.device != q.device for t in tensors):

@@ -3,8 +3,10 @@ under error taps runs kernels 2-4 and never their plain versions, an
 unpacked 8-bit Adam leaf launches kernel 13 and a packed one kernel 14,
 the int8 decode attention's integer-dot and K^T forms launch their kernel,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
-kernels and agree with their plain versions, and the rounding kernel takes
-the NormalFloat codebooks and native casts bit for bit.  Marked
+kernels and agree with their plain versions, the rounding kernel takes
+the NormalFloat codebooks and native casts bit for bit, and both decode
+kernels take every instantiated GQA group and head dim (and refuse the
+rest).  Marked
 ``cuda``: without a card each test skips.  This file imports no JAX, so on
 a card's machine without JAX it runs as
 
@@ -270,3 +272,160 @@ def test_flash_backward_refuses_nf_and_cast(cuda_device):
                   dict(err_qfn=quantize_fn("bfloat16"))):
         with pytest.raises(ValueError, match="no checked backward form"):
             fa.flash_attention(q, q, q, **hooks)
+
+
+def _rnd(gen, *shape):
+    return torch.randn(shape, generator=gen, device=gen.device).bfloat16()
+
+
+def _head_map_fault(plain, q, *args, G, KV, **kw):
+    """The plain output of a kernel whose query head h reads kv head h % KV
+    instead of h // G: q's heads placed where the plain version's grouping
+    gives them kv head h % KV, and the outputs taken back in head order."""
+    H = q.shape[1]
+    pos = torch.tensor([(h % KV) * G + h // KV for h in range(H)],
+                       device=q.device)
+    moved = torch.empty_like(q)
+    moved[:, pos] = q
+    return plain(moved, *args, **kw)[:, pos]
+
+
+def _int_sym_case(gen, D, G, bits, P=512, R=16, B=2, KV=2):
+    cfg = kvc.KVCacheConfig.int_sym(P, R, bits)
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, KV, D,
+                                             device=gen.device),
+                              cfg, _rnd(gen, B, P, KV, D),
+                              _rnd(gen, B, P, KV, D))
+    lens = (torch.tensor([P, 300], dtype=torch.int32, device=gen.device),
+            torch.tensor([3, R], dtype=torch.int32, device=gen.device))
+    return cache, (_rnd(gen, B, KV, R, D), _rnd(gen, B, KV, R, D)), lens
+
+
+@pytest.mark.parametrize("D,G", [(d, g) for d in (64, 128)
+                                 for g in (1, 2, 4, 8)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_int_kv_split_gqa_forms(cuda_device, D, G, bits):
+    """The split kernel (bf16 dots over untransposed codes) at every
+    instantiated (D, G): one launch, within the MHA forms' bounds of its
+    plain version (2e-3 at int4, 4e-3 at int8, + 2e-2*|plain|; no slot
+    here holds the single main token where chip_smoke.py allows a
+    rounding floor), and far outside them from a kernel whose head h
+    reads kv head h % KV."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    gen = torch.Generator(device=cuda_device).manual_seed(10 * G + D + bits)
+    cache, res, lens = _int_sym_case(gen, D, G, bits)
+    q = _rnd(gen, 2, 2 * G, D)
+    args = (cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale,
+            *res, *lens)
+    form = dict(bits=bits, int_dots=False, k_transposed=False)
+    fn = ikv.int_kv_decode_attention
+    got = _launches(fn, lambda: fn(q, *args, **form))
+    want = ikv.int_kv_decode_plain(q, *args, scale=D ** -0.5, **form)
+    atol = 2e-3 if bits == 4 else 4e-3
+    assert torch.allclose(got.float(), want.float(), atol=atol, rtol=2e-2)
+    if G > 1:
+        faulted = _head_map_fault(ikv.int_kv_decode_plain, q, *args, G=G,
+                                  KV=2, scale=D ** -0.5, **form)
+        assert not torch.allclose(got.float(), faulted.float(), atol=atol,
+                                  rtol=2e-2)
+
+
+@pytest.mark.parametrize("D,G", [(d, g) for d in (64, 128)
+                                 for g in (1, 2, 4, 8)])
+@pytest.mark.parametrize("int_dots,k_transposed",
+                         [(True, True), (True, False), (False, True)])
+def test_int_kv_tile_gqa_forms(cuda_device, D, G, int_dots, k_transposed):
+    """The whole-tile kernel at every instantiated (D, G) and form: one
+    launch, within chip_smoke.py's bounds (max error 2e-3, at most 0.5% of
+    outputs outside 1e-4 + 1e-3|plain|), and far outside them from a
+    kernel whose head h reads kv head h % KV."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    gen = torch.Generator(device=cuda_device).manual_seed(10 * G + D)
+    cache, res, lens = _int_sym_case(gen, D, G, 8, P=256)
+    kc = (cache.k_codes.transpose(2, 3).contiguous() if k_transposed
+          else cache.k_codes)
+    q = _rnd(gen, 2, 2 * G, D)
+    args = (kc, cache.k_scale, cache.v_codes, cache.v_scale, *res, *lens)
+    form = dict(bits=8, int_dots=int_dots, k_transposed=k_transposed)
+    fn = ikv.int_kv_decode_attention
+    before = fn.tile_launches
+    got = fn(q, *args, **form)
+    torch.cuda.synchronize()
+    assert fn.tile_launches == before + 1
+
+    def outside(want):
+        err = (got.float() - want.float()).abs()
+        return err, float((err > 1e-4 + 1e-3 * want.float().abs())
+                          .float().mean())
+
+    err, share = outside(ikv.int_kv_decode_plain(q, *args, scale=D ** -0.5,
+                                                 **form))
+    assert float(err.max()) <= 2e-3 and share <= 0.005
+    if G > 1:
+        assert outside(_head_map_fault(ikv.int_kv_decode_plain, q, *args,
+                                       G=G, KV=2, scale=D ** -0.5,
+                                       **form))[1] > 0.05
+
+
+@pytest.mark.parametrize("D,G", [(d, g) for d in (64, 128)
+                                 for g in (1, 2, 4, 8)])
+@pytest.mark.parametrize("bits", [2, 4, None])
+def test_kivi_decode_gqa_forms(cuda_device, D, G, bits):
+    """The KIVI decode at every instantiated (D, G) and cache form: one
+    launch, within 2e-2 + 2e-2*|plain| of its plain version, and outside
+    it from a kernel whose head h reads kv head h % KV."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10 * G + D)
+    B, KV, P, R = 2, 2, 256, 8
+    spec = "uint{},qs=group_wise_affine,bs=32,ax={}"
+    nb = bits or 2
+    cfg = kvc.KVCacheConfig.kivi(P, R, spec.format(nb, -2),
+                                 spec.format(nb, -1), bits is not None)
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, KV, D,
+                                             device=cuda_device),
+                              cfg, _rnd(gen, B, P, KV, D),
+                              _rnd(gen, B, P, KV, D), length=200)
+    lens = (torch.tensor([200, 77], dtype=torch.int32, device=cuda_device),
+            torch.tensor([3, R], dtype=torch.int32, device=cuda_device))
+    q = _rnd(gen, B, KV * G, D)
+    args = (*cache[:6], _rnd(gen, B, KV, R, D), _rnd(gen, B, KV, R, D),
+            *lens)
+    kw = dict(bits_k=bits, bits_v=bits)
+    fn = kivi_attention.kivi_decode_attention
+    got = _launches(fn, lambda: fn(q, *args, **kw))
+    want = kivi_attention.kivi_decode_plain(q, *args, scale=D ** -0.5, **kw)
+    assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    if G > 1:
+        faulted = _head_map_fault(kivi_attention.kivi_decode_plain, q, *args,
+                                  G=G, KV=KV, scale=D ** -0.5, **kw)
+        assert not torch.allclose(got.float(), faulted.float(), atol=2e-2,
+                                  rtol=2e-2)
+
+
+def test_decode_kernels_refuse_uninstantiated_forms(cuda_device):
+    """A (D, G) no kernel is built for raises before any launch, as does a
+    whole-tile shape whose scores exceed one block's shared memory; none
+    falls back to a plain version."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    B, KV, R = 1, 2, 8
+    for D, G, P in ((96, 1, 64), (128, 3, 64), (128, 16, 64),
+                    (128, 8, 8192)):
+        cfg = kvc.KVCacheConfig.int_sym(P, R, 8)
+        c = kvc.init_cache(cfg, B, KV, D, device=cuda_device)
+        lens = torch.ones((B,), dtype=torch.int32, device=cuda_device)
+        q = _rnd(gen, B, KV * G, D)
+        kT = c.k_codes.transpose(2, 3).contiguous()
+        with pytest.raises(ValueError):
+            ikv.int_kv_decode_attention(q, kT, c.k_scale, c.v_codes,
+                                        c.v_scale, c.k_res.bfloat16(),
+                                        c.v_res.bfloat16(), lens, lens)
+        if P == 8192:
+            continue
+        spec = "uint2,qs=group_wise_affine,bs=32,ax={}"
+        kcfg = kvc.KVCacheConfig.kivi(P, R, spec.format(-2), spec.format(-1),
+                                      True)
+        k = kvc.init_cache(kcfg, B, KV, D, device=cuda_device)
+        with pytest.raises(ValueError):
+            kivi_attention.kivi_decode_attention(
+                q, *k[:6], k.k_res.bfloat16(), k.v_res.bfloat16(), lens,
+                lens, bits_k=2, bits_v=2)
