@@ -1,59 +1,84 @@
-// Causal GQA flash attention forward, in two forms:
-//   flash_attn_fwd: single pass, online softmax, no rounding hooks;
-//   flash_attn_fwd_two_pass: the probabilities rounded to a format
-//     (p_qfn) and, optionally, the output rounded in the epilogue (out_qfn).
-//   q (B, H, S, D), k/v (B, KV, T, D) bf16, out (B, H, S, D) bf16;
-//   query row i sits at absolute position q_offset + i; head h reads kv head
+// Causal GQA flash attention forward on Hopper's tensor cores, in four forms:
+//   flash_attn_fwd: single pass, online softmax (form 1), optionally with
+//     the row logsumexp for training (form 2);
+//   flash_attn_fwd_two_pass: the probabilities rounded to a format (p_fmt)
+//     and, optionally, the output rounded in the epilogue (out_fmt) (form
+//     3); with an lse, also o_unq, the output with p unrounded (form 4).
+//   q (B, H, S, D), k/v (B, KV, T, D) bf16, out (B, H, S, D) bf16; query row
+//   i sits at absolute position q_offset + i; head h reads kv head
 //   h / (H / KV); f32 softmax statistics; masked scores are NEG_INF = -2^30.
 //
 // Replaces quantized_training_tpu/ops/pallas/flash_attention.py:66
-// (_attn_kernel, reached through flash_attention).  Single pass: p is
-// rounded to bf16 before the p @ v product, as the TPU kernel rounds it to
-// v's dtype, and a row whose l is 0 divides by 1.  Two pass (the TPU
-// kernel's p_qfn form, :160-216): pass 1 keeps the running max and sum of
-// each row and turns them into its logsumexp; pass 2 recomputes each score
-// tile, rounds p = exp(s - lse) to bf16 and then through the p format
-// (qt_round.cuh), and accumulates round(p) @ v with no final division; the
-// out format, if any, rounds the bf16 output before the store.
-//
-// Training forms (the TPU kernel's save_lse, :214-226): both kernels take an
-// optional f32 lse (B, H, S) and write each row's logsumexp m + log(l) into
-// it (l == 0 taken as 1), one value per row where the TPU kernel replicates
-// it over 128 lanes.  The two-pass kernel with an lse also writes o_unq, the
-// output with p unrounded: pass 2 accumulates bf16(p) @ v beside
-// round(p) @ v (:183-187), in a second register tile.
+// (_attn_kernel, reached through flash_attention), and rounds where it
+// rounds.  Single pass: p = exp(s - m_new) feeds l in f32 and is rounded to
+// bf16 only as the A operand of p @ v; alpha = exp(m - m_new) rescales the
+// running sums, and a row whose l is 0 divides by 1.  Two pass (the TPU
+// kernel's p_qfn form, :160-216): pass 1 computes scores only (no V is
+// loaded) and turns the running max and sum of each row, updated once per
+// 128 keys as the TPU kernel's block_k, into its logsumexp; pass 2
+// recomputes each score tile, rounds p = exp(s * scale - lse) (the product
+// rounded first, as the TPU kernel scales s) to bf16 and then through the p
+// format (qt_round.cuh) in registers, and accumulates round(p) @ v with no
+// final division; the out format, if any, rounds the bf16 output before
+// the store.  Training forms (the TPU kernel's save_lse, :214-226): an f32
+// lse (B, H, S) receives each row's logsumexp m + log(l) (l == 0 taken as
+// 1), one value per row; the two-pass kernel with an lse also accumulates
+// bf16(p) @ v beside round(p) @ v (:183-187), in a second accumulator, and
+// writes it as o_unq.
 //
 // What bounds it on an H100: the causal operations, 4*S^2*D*H/2 per batch
 // row for one pass and 6*S^2*D*H/2 for two (pass 1 computes scores only),
 // over the 989 TFLOP/s bf16 tensor-core rate; the score tensor never leaves
-// the block.  Design for this first version (CUDA-core FMAs, no tensor
-// cores yet): one block of four warps per (64-row q tile, head, batch); K/V
-// tiles of 32 keys are staged in shared memory (K transposed so that lane j
-// reads key j without bank conflicts); each warp owns 16 query rows and
-// keeps their running max, sum and output accumulators in registers (lane j
-// holds score column j, then output columns j + 32i); key tiles above the
-// diagonal are never loaded, in either pass, and pass 1 loads no V.  Any S
-// and T are taken (ragged tiles are masked), and D is 64 or 128.
+// the registers.  Design:
+//   * one block of two warpgroups per (128-row q tile, head, batch); each
+//     warpgroup owns 64 query rows and computes S = Q K^T with
+//     wgmma.mma_async (m64n64k16, Q and K from shared memory) and
+//     O += P V (m64nDk16) with P from registers and V from shared memory,
+//     bf16 operands and f32 sums, as the TPU kernel's bf16 dots.  In the
+//     two-pass forms S is summed 16 dims at a time and the chunks added in
+//     f32 (see scores()): the probabilities' posit roundings turn a score's
+//     last bit into a rounding step, so those scores stay within about an
+//     ulp of the exact dot;
+//   * P is the S accumulator fragment itself: exp, the bf16 and format
+//     roundings and the masks are applied to it in registers, then it is
+//     packed into the A operand (the accumulator and A fragment layouts
+//     agree element for element), so no score or probability touches
+//     shared memory;
+//   * Q (128 x D) and a ring of three K/V stages of 64 keys are filled with
+//     16-byte cp.async.cg copies (zero-filled past S and T) in the 128-byte
+//     swizzled layout wgmma reads: D/64 blocks of rows of 128 bytes, the
+//     16-byte chunk index XOR the row index mod 8.  K is K-major for Q K^T;
+//     V, stored the same way, is the MN-major B operand of P V;
+//   * key tiles above the diagonal are never loaded, and a warpgroup skips
+//     the tiles wholly above its own rows; q tiles are launched longest
+//     first (blockIdx.y counts down the diagonal), so the causal tail
+//     starts early on the 132 SMs.  GQA heads are not stacked: each block
+//     reads its kv head's tiles through L2.
+// D is 64 or 128; any S and T are taken (ragged tiles are masked).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "qt_round.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 32;
-constexpr int NWARPS = 4;
-constexpr int ROWS = BQ / NWARPS;  // query rows per warp
-constexpr int KT_STRIDE = BK + 2;  // padded row of the transposed K tile
+constexpr int BQ = 128;             // query rows per block (two warpgroups)
+constexpr int BK = 64;              // keys per tile
+constexpr int NSTAGE = 3;           // K/V ring depth
+constexpr int NTHREADS = 256;
+constexpr int ROW_BYTES = 128;      // one swizzled row: 64 bf16
 constexpr float NEG_INF = -1073741824.0f;  // -2^30
 
-__device__ __forceinline__ float bf16_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
+template <int D>
+struct Layout {
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // + 1024: the swizzle atoms need 1024-byte alignment
+  static constexpr int SMEM_BYTES = Q_BYTES + NSTAGE * STAGE_BYTES + 1024;
+  static_assert(SMEM_BYTES <= 232448, "over the H100's shared memory");
+};
 
 __device__ __forceinline__ float round_bf16(float v) {
   uint32_t u = __float_as_uint(v);
@@ -62,336 +87,552 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __uint_as_float(u & 0xffff0000u);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// two values rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-template <int D>
-struct Tiles {
-  __align__(16) uint16_t qs[BQ][D];
-  __align__(16) uint16_t kts[D][KT_STRIDE];
-  __align__(16) uint16_t vs[BK][D];
-  float ps[BQ][BK];
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- asynchronous copies ----------------------------------------------------
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows r0..r0+ROWS-1 of a (len, D) bf16 matrix into a swizzled tile at
+// shared address dst: D/64 column blocks of ROWS rows of 128 bytes, chunk c
+// of row r at (c ^ (r % 8)) * 16.  Rows at or past len are zero.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const uint16_t* src,
+                                          int r0, int len, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * CH % NTHREADS == 0, "tile not a whole number of rounds");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / NTHREADS; ++i) {
+    const int c = tid + i * NTHREADS;
+    const int r = c / CH, cc = c % CH;
+    const bool ok = r0 + r < len;
+    const uint16_t* s = src + static_cast<size_t>(ok ? r0 + r : 0) * D + cc * 8;
+    cp_async16(dst + (cc >> 3) * (ROWS * ROW_BYTES) + r * ROW_BYTES +
+                   (((cc & 7) ^ (r & 7)) << 4),
+               s, ok);
+  }
+}
+
+// ---- warpgroup matrix multiply ----------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle; lbo and sbo in 16-byte
+// units.  K-major (Q, K): sbo = 8 rows = 1024 bytes, lbo unused.  MN-major
+// (V): sbo = 8 keys = 1024 bytes, lbo = the next 64-column block.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) |
+         (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of wgmma's registers across it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A(desc, K-major) * B(desc, K-major), m64n64k16, bf16 in, f32 sums
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A(registers) * B(desc, MN-major), m64n64k16, bf16 in, f32 sums
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A(registers) * B(desc, MN-major), m64n128k16, bf16 in, f32 sums
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The fragments below are wgmma's accumulator layout for a warpgroup's 64
+// rows: element i of a thread sits at row 16 * warp + lane / 4 + 8 * ((i / 2)
+// % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.  Elements i with
+// (i / 2) % 2 == 0 belong to the thread's row "a", the others to row "b" =
+// a + 8.  The A operand of m64nNk16 has the same layout over its 16
+// columns, so the score tile's elements 8kk..8kk+7 are, packed in pairs,
+// the A registers of key step kk.
+constexpr int NS = BK / 8 * 4;      // score elements per thread
+
+__device__ __forceinline__ bool row_b(int i) { return (i >> 1) & 1; }
+
+// s = Q K^T for the warpgroup's rows over the key tile at k_st (unscaled).
+// The tensor cores' f32 sums truncate as they accumulate, so a chain of
+// D/16 steps drifts from the exact dot by a few ulps, biased toward 0.  The
+// single pass takes the chain: its p is rounded only to bf16, a step far
+// above those ulps.  The two-pass forms (CHUNKED) round p through formats
+// as coarse as posit8, where a score's last bit decides a rounding step
+// (PERF.md): each 16-deep chunk is summed alone and the chunks are
+// added in f32 with round-to-nearest, which keeps s within about an ulp of
+// the exact dot rounded once.  One accumulator array serves every chunk, one
+// chunk at a time: ptxas takes minutes over two in flight at once.
+template <int D, bool CHUNKED>
+__device__ __forceinline__ void scores(float (&s)[NS], uint32_t q_s,
+                                       uint32_t k_st, int wg) {
+  auto desc_q = [&](int kk) {
+    return smem_desc(q_s + (kk >> 2) * (BQ * ROW_BYTES) +
+                         wg * (64 * ROW_BYTES) + (kk & 3) * 32,
+                     1, 64);
+  };
+  auto desc_k = [&](int kk) {
+    return smem_desc(k_st + (kk >> 2) * (BK * ROW_BYTES) + (kk & 3) * 32, 1,
+                     64);
+  };
+  if constexpr (!CHUNKED) {
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_q(kk), desc_k(kk), kk > 0);
+    wg_commit_wait();
+    fence_regs(s);
+  } else {
+    float t[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) t[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      fence_regs(t);
+      wg_fence();
+      wgmma_ss(t, desc_q(kk), desc_k(kk), 0);
+      wg_commit_wait();
+      fence_regs(t);
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        s[i] = kk == 0 ? t[i] : __fadd_rn(s[i], t[i]);
+    }
+  }
+}
+
+// The A operand of P @ V: p (exact bf16 values) packed in pairs
+using PFrag = uint32_t[BK / 16][4];
+
+__device__ __forceinline__ void pack_p(PFrag& a, const float (&p)[NS]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      a[kk][t] = pack_bf16(p[8 * kk + 2 * t], p[8 * kk + 2 * t + 1]);
+}
+
+// wgmma reads its A registers until the wait: keep them live to here
+__device__ __forceinline__ void fence_regs(PFrag& a) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) asm volatile("" : "+r"(a[kk][t])::"memory");
+}
+
+// o += P @ V for the V tile at v_st (issued, not waited for)
+template <int NO>
+__device__ __forceinline__ void pv_issue(float (&o)[NO], const PFrag& a,
+                                         uint32_t v_st) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, a[kk], smem_desc(v_st + kk * 16 * ROW_BYTES,
+                                 (BK * ROW_BYTES) >> 4, 64));
+}
+
+// Where a thread's fragment elements sit: column col0 + ... of a tile,
+// rows at absolute positions qpos_a and qpos_a + 8
+struct Pos {
+  int col0, qpos_a, T, causal;
+  // key k0 + the column of element i is visible from the element's row
+  __device__ __forceinline__ bool visible(int i, int k0) const {
+    const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
+    return kpos < T && (!causal || kpos <= qpos_a + 8 * row_b(i));
+  }
 };
 
-// the two-pass training form's extra tile: bf16(p) bits for o_unq
-template <int D>
-struct TilesSave : Tiles<D> {
-  uint16_t pu[BQ][BK];
-};
+// The scaled scores (the product rounded, never fused into what follows)
+// with masked ones at NEG_INF, and each row's max over the tile (across the
+// quad of threads that hold the row).  MASK: the tile reaches past T or
+// above a row's diagonal.
+template <bool MASK>
+__device__ __forceinline__ void scale_max(float (&s)[NS], float scale,
+                                          const Pos& pos, int k0, float& mx_a,
+                                          float& mx_b) {
+  mx_a = mx_b = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    s[i] = (MASK && !pos.visible(i, k0)) ? NEG_INF : __fmul_rn(s[i], scale);
+    if (row_b(i)) mx_b = fmaxf(mx_b, s[i]);
+    else mx_a = fmaxf(mx_a, s[i]);
+  }
+  mx_a = quad_max(mx_a);
+  mx_b = quad_max(mx_b);
+}
 
-// q tile, zero past S
-template <int D>
-__device__ __forceinline__ void load_q(Tiles<D>& t, const uint16_t* qp, int q0,
-                                       int S, int tid) {
-  for (int idx = tid; idx < BQ * D / 8; idx += NWARPS * 32) {
-    const int r = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S)
-      val = *reinterpret_cast<const uint4*>(qp + static_cast<size_t>(q0 + r) * D + c);
-    *reinterpret_cast<uint4*>(&t.qs[r][c]) = val;
+// p = exp(s - m) in place (0 where masked) and each row's sum of p
+template <bool MASK>
+__device__ __forceinline__ void exp_sum(float (&s)[NS], float m_a, float m_b,
+                                        const Pos& pos, int k0, float& sum_a,
+                                        float& sum_b) {
+  sum_a = sum_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    s[i] = (MASK && !pos.visible(i, k0)) ? 0.f
+                                          : expf(s[i] - (row_b(i) ? m_b : m_a));
+    if (row_b(i)) sum_b += s[i];
+    else sum_a += s[i];
+  }
+  sum_a = quad_sum(sum_a);
+  sum_b = quad_sum(sum_b);
+}
+
+// pass 2's p = exp(s * scale - lse) rounded to bf16, in place (0 where
+// masked); the product is rounded before the difference, as the TPU
+// kernel scales s first
+template <bool MASK>
+__device__ __forceinline__ void exp_lse(float (&s)[NS], float scale,
+                                        float lse_a, float lse_b,
+                                        const Pos& pos, int k0) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    s[i] = (MASK && !pos.visible(i, k0))
+               ? 0.f
+               : round_bf16(expf(__fsub_rn(__fmul_rn(s[i], scale),
+                                           row_b(i) ? lse_b : lse_a)));
+}
+
+// An output fragment rounded to bf16 into rows row_a.. (and row_a + 8..)
+// of a (S, D) matrix; rows at or past S are not stored.
+template <int NO>
+__device__ __forceinline__ void store_rows(uint16_t* dst, const float (&f)[NO],
+                                           int row_a, int S, int col0) {
+  constexpr int D = NO * 2;
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int row = row_a + 8 * row_b(i);
+    if (row < S)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D +
+                                   8 * (i >> 2) + col0) =
+          pack_bf16(f[i], f[i + 1]);
   }
 }
 
-// K tile (transposed) and, with LOAD_V, the V tile of keys k0..k0+BK-1,
-// zero past T
-template <int D, bool LOAD_V>
-__device__ __forceinline__ void load_kv(Tiles<D>& t, const uint16_t* kp,
-                                        const uint16_t* vp, int k0, int T,
-                                        int tid) {
-  for (int idx = tid; idx < BK * D / 8; idx += NWARPS * 32) {
-    const int c = idx / (D / 8);
-    const int d = (idx % (D / 8)) * 8;
-    uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-    if (k0 + c < T) {
-      kv4 = *reinterpret_cast<const uint4*>(kp + static_cast<size_t>(k0 + c) * D + d);
-      if (LOAD_V)
-        vv4 = *reinterpret_cast<const uint4*>(vp + static_cast<size_t>(k0 + c) * D + d);
-    }
-    const uint32_t kw[4] = {kv4.x, kv4.y, kv4.z, kv4.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      t.kts[d + 2 * e][c] = static_cast<uint16_t>(kw[e] & 0xffffu);
-      t.kts[d + 2 * e + 1][c] = static_cast<uint16_t>(kw[e] >> 16);
-    }
-    if (LOAD_V) *reinterpret_cast<uint4*>(&t.vs[c][d]) = vv4;
-  }
-}
-
-// raw scores q . k of the warp's rows r0.. against key column `lane`
-template <int D>
-__device__ __forceinline__ void score_tile(const Tiles<D>& t, int r0, int lane,
-                                           float (&s)[ROWS]) {
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) s[i] = 0.f;
-  for (int d = 0; d < D; d += 8) {
-    float kv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) kv[e] = bf16_to_float(t.kts[d + e][lane]);
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const uint4 qv = *reinterpret_cast<const uint4*>(&t.qs[r0 + i][d]);
-      const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w};
-      float a = s[i];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        a += __uint_as_float(qw[e] << 16) * kv[2 * e];
-        a += __uint_as_float(qw[e] & 0xffff0000u) * kv[2 * e + 1];
-      }
-      s[i] = a;
-    }
-  }
-}
-
-// acc += ps[rows] @ vs (output columns lane + 32j)
-template <int D>
-__device__ __forceinline__ void accumulate_pv(const Tiles<D>& t, int r0, int lane,
-                                              float (&acc)[ROWS][D / 32]) {
-  constexpr int DL = D / 32;
-  for (int c = 0; c < BK; ++c) {
-    float vv[DL];
-#pragma unroll
-    for (int j = 0; j < DL; ++j) vv[j] = bf16_to_float(t.vs[c][lane + 32 * j]);
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float p = t.ps[r0 + i][c];
-#pragma unroll
-      for (int j = 0; j < DL; ++j) acc[i][j] += p * vv[j];
-    }
-  }
-}
-
-// acc += ps[rows] @ vs and acc2 += pu[rows] @ vs in one sweep over vs
-template <int D>
-__device__ __forceinline__ void accumulate_pv2(const TilesSave<D>& t, int r0,
-                                               int lane,
-                                               float (&acc)[ROWS][D / 32],
-                                               float (&acc2)[ROWS][D / 32]) {
-  constexpr int DL = D / 32;
-  for (int c = 0; c < BK; ++c) {
-    float vv[DL];
-#pragma unroll
-    for (int j = 0; j < DL; ++j) vv[j] = bf16_to_float(t.vs[c][lane + 32 * j]);
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float p = t.ps[r0 + i][c];
-      const float pu = bf16_to_float(t.pu[r0 + i][c]);
-#pragma unroll
-      for (int j = 0; j < DL; ++j) {
-        acc[i][j] += p * vv[j];
-        acc2[i][j] += pu * vv[j];
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
+template <int D, bool TWO_PASS, bool SAVE>
+__global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
           const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-          float* __restrict__ lse_out, int H, int KV, int S, int T,
-          float scale, int causal, int q_offset) {
-  constexpr int DL = D / 32;  // output columns per lane
-  __shared__ Tiles<D> t;
+          float* __restrict__ lse_out, uint16_t* __restrict__ o_unq, int H,
+          int KV, int S, int T, float scale, int causal, int q_offset,
+          QtFormat p_fmt, QtFormat out_fmt) {
+  using L = Layout<D>;
+  constexpr int NO = D / 8 * 4;  // output elements per thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + L::Q_BYTES;
 
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
   const int kvh = h / (H / KV);
-
-  const uint16_t* qp = q + (static_cast<size_t>(b) * H + h) * S * D;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const uint16_t* qp = q + bh * S * D;
   const uint16_t* kp = k + (static_cast<size_t>(b) * KV + kvh) * T * D;
   const uint16_t* vp = v + (static_cast<size_t>(b) * KV + kvh) * T * D;
-  uint16_t* op = o + (static_cast<size_t>(b) * H + h) * S * D;
 
-  load_q<D>(t, qp, q0, S, tid);
+  // this thread's rows (a, and b = a + 8) in the block
+  const int row_a = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const Pos pos{2 * (lane & 3), q_offset + q0 + row_a, T, causal};
 
-  const int r0 = warp * ROWS;
-  float m[ROWS], l[ROWS], acc[ROWS][DL];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DL; ++j) acc[i][j] = 0.f;
-  }
-
-  // keys a causal tile can see: positions <= q_offset + last row
+  // keys the block can see, and those its warpgroup's rows can see
   const int q_last = min(q0 + BQ, S) - 1;
   const int kend = causal ? max(0, min(T, q_offset + q_last + 1)) : T;
+  const int n_tiles = (kend + BK - 1) / BK;
+  const int wg_first = q0 + wg * 64;
+  const int wg_kend =
+      wg_first >= S ? 0
+      : causal ? max(0, min(T, q_offset + min(wg_first + 63, S - 1) + 1))
+               : T;
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and q tile written)
-    load_kv<D, true>(t, kp, vp, k0, T, tid);
-    __syncthreads();
-
-    float s[ROWS];
-    score_tile<D>(t, r0, lane, s);
-
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qpos = q_offset + q0 + r0 + i;
-      const bool valid = kpos < T && (!causal || kpos <= qpos);
-      const float sv = valid ? s[i] * scale : NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(sv));
-      const float p = valid ? expf(sv - m_new) : 0.f;
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
-      m[i] = m_new;
-      t.ps[r0 + i][lane] = round_bf16(p);
-#pragma unroll
-      for (int j = 0; j < DL; ++j) acc[i][j] *= alpha;
+  auto stage = [&](int j) { return kv_s + (j % NSTAGE) * L::STAGE_BYTES; };
+  auto issue = [&](int j, bool with_v) {
+    if (j < n_tiles) {
+      load_tile<D, BK>(stage(j), kp, j * BK, T, tid);
+      if (with_v) load_tile<D, BK>(stage(j) + L::KV_BYTES, vp, j * BK, T, tid);
     }
-    __syncwarp();
-    accumulate_pv<D>(t, r0, lane, acc);
+    cp_async_commit();
+  };
+  // the oldest tile in flight is in shared memory and visible to wgmma, and
+  // every warpgroup is done with the stage the next issue overwrites
+  auto arrive = [&]() {
+    cp_async_wait<NSTAGE - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+  // a tile that reaches past T or above the warpgroup's first row's diagonal
+  auto edge = [&](int k0) {
+    return k0 + BK > T || (causal && k0 + BK - 1 > q_offset + wg_first);
+  };
+
+  float o_acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
+  float s[NS];
+
+  load_tile<D, BQ>(q_s, qp, q0, S, tid);  // in the first copy group
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  if constexpr (!TWO_PASS) {
+    for (int j = 0; j < NSTAGE - 1; ++j) issue(j, true);
+    for (int j = 0; j < n_tiles; ++j) {
+      arrive();
+      issue(j + NSTAGE - 1, true);
+      const int k0 = j * BK;
+      if (k0 >= wg_kend) continue;
+      scores<D, false>(s, q_s, stage(j), wg);
+      const bool e = edge(k0);
+      float mx_a, mx_b, sum_a, sum_b;
+      if (e) scale_max<true>(s, scale, pos, k0, mx_a, mx_b);
+      else scale_max<false>(s, scale, pos, k0, mx_a, mx_b);
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      if (e) exp_sum<true>(s, mn_a, mn_b, pos, k0, sum_a, sum_b);
+      else exp_sum<false>(s, mn_a, mn_b, pos, k0, sum_a, sum_b);
+      const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o_acc[i] *= row_b(i) ? alpha_b : alpha_a;
+      PFrag a;
+      pack_p(a, s);  // p rounded to bf16 as the P @ V operand
+      fence_regs(a);
+      fence_regs(o_acc);
+      wg_fence();
+      pv_issue(o_acc, a, stage(j) + L::KV_BYTES);
+      wg_commit_wait();
+      fence_regs(a);
+      fence_regs(o_acc);
+    }
+    const float den_a = l_a == 0.f ? 1.f : l_a, den_b = l_b == 0.f ? 1.f : l_b;
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      o_acc[i] = o_acc[i] / (row_b(i) ? den_b : den_a);
+    m_a += logf(den_a);  // the row logsumexp
+    m_b += logf(den_b);
+  } else {
+    // pass 1: running max and sum (no V), updated once per window of two
+    // tiles, the TPU kernel's 128-key block, then the lse
+    float s0[NS], mx0_a = NEG_INF, mx0_b = NEG_INF;  // the window's first tile
+    bool e0 = false;
+    for (int j = 0; j < NSTAGE - 1; ++j) issue(j, false);
+    for (int j = 0; j < n_tiles; ++j) {
+      arrive();
+      issue(j + NSTAGE - 1, false);
+      const int k0 = j * BK;
+      if (k0 >= wg_kend) continue;
+      scores<D, true>(s, q_s, stage(j), wg);
+      const bool e = edge(k0);
+      float mx_a, mx_b, sum_a, sum_b, sum0_a = 0.f, sum0_b = 0.f;
+      if (e) scale_max<true>(s, scale, pos, k0, mx_a, mx_b);
+      else scale_max<false>(s, scale, pos, k0, mx_a, mx_b);
+      const bool first = (j & 1) == 0;
+      if (first && k0 + BK < wg_kend) {  // the window's second tile follows
+#pragma unroll
+        for (int i = 0; i < NS; ++i) s0[i] = s[i];
+        mx0_a = mx_a;
+        mx0_b = mx_b;
+        e0 = e;
+        continue;
+      }
+      const float mn_a = fmaxf(m_a, first ? mx_a : fmaxf(mx0_a, mx_a));
+      const float mn_b = fmaxf(m_b, first ? mx_b : fmaxf(mx0_b, mx_b));
+      if (!first && e0) exp_sum<true>(s0, mn_a, mn_b, pos, k0 - BK, sum0_a, sum0_b);
+      else if (!first) exp_sum<false>(s0, mn_a, mn_b, pos, k0 - BK, sum0_a, sum0_b);
+      if (e) exp_sum<true>(s, mn_a, mn_b, pos, k0, sum_a, sum_b);
+      else exp_sum<false>(s, mn_a, mn_b, pos, k0, sum_a, sum_b);
+      l_a = l_a * expf(m_a - mn_a) + (sum0_a + sum_a);
+      l_b = l_b * expf(m_b - mn_b) + (sum0_b + sum_b);
+      m_a = mn_a;
+      m_b = mn_b;
+    }
+    m_a += logf(l_a == 0.f ? 1.f : l_a);  // m_a, m_b: the rows' lse
+    m_b += logf(l_b == 0.f ? 1.f : l_b);
+
+    // pass 2: o += round(exp(s - lse)) @ v, no rescale and no division;
+    // with SAVE also o2 += bf16(exp(s - lse)) @ v
+    float o2[SAVE ? NO : 1];
+#pragma unroll
+    for (int i = 0; i < (SAVE ? NO : 1); ++i) o2[i] = 0.f;
+    cp_async_wait<0>();
+    __syncthreads();  // every warpgroup is done with pass 1's stages
+    for (int j = 0; j < NSTAGE - 1; ++j) issue(j, true);
+    for (int j = 0; j < n_tiles; ++j) {
+      arrive();
+      issue(j + NSTAGE - 1, true);
+      const int k0 = j * BK;
+      if (k0 >= wg_kend) continue;
+      scores<D, true>(s, q_s, stage(j), wg);
+      if (edge(k0)) exp_lse<true>(s, scale, m_a, m_b, pos, k0);
+      else exp_lse<false>(s, scale, m_a, m_b, pos, k0);
+      PFrag a, a2;
+      if constexpr (SAVE) pack_p(a2, s);
+      qt_round_all<true>(s, p_fmt);
+      pack_p(a, s);
+      fence_regs(a);
+      fence_regs(o_acc);
+      if constexpr (SAVE) {
+        fence_regs(a2);
+        fence_regs(o2);
+      }
+      wg_fence();
+      pv_issue(o_acc, a, stage(j) + L::KV_BYTES);
+      if constexpr (SAVE) pv_issue(o2, a2, stage(j) + L::KV_BYTES);
+      wg_commit_wait();
+      fence_regs(a);
+      fence_regs(o_acc);
+      if constexpr (SAVE) {
+        fence_regs(a2);
+        fence_regs(o2);
+      }
+    }
+    if constexpr (SAVE)
+      store_rows(o_unq + bh * S * D, o2, q0 + row_a, S, pos.col0);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o_acc[i] = round_bf16(o_acc[i]);
+    qt_round_all<true>(o_acc, out_fmt);
   }
 
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + r0 + i;
-    if (row >= S) continue;
-    const float denom = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int j = 0; j < DL; ++j) {
-      const float val = round_bf16(acc[i][j] / denom);
-      op[static_cast<size_t>(row) * D + lane + 32 * j] =
-          static_cast<uint16_t>(__float_as_uint(val) >> 16);
-    }
-    if (lse_out != nullptr && lane == 0)
-      lse_out[(static_cast<size_t>(b) * H + h) * S + row] = m[i] + logf(denom);
+  store_rows(o + bh * S * D, o_acc, q0 + row_a, S, pos.col0);
+  if (lse_out != nullptr && (lane & 3) == 0) {
+    if (q0 + row_a < S) lse_out[bh * S + q0 + row_a] = m_a;
+    if (q0 + row_a + 8 < S) lse_out[bh * S + q0 + row_a + 8] = m_b;
   }
 }
 
-template <int D, bool SAVE>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_fwd_two_pass(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                   const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                   float* __restrict__ lse_out, uint16_t* __restrict__ o_unq,
-                   int H, int KV, int S, int T, float scale, int causal,
-                   int q_offset, QtFormat p_fmt, QtFormat out_fmt) {
-  constexpr int DL = D / 32;
-  __shared__ std::conditional_t<SAVE, TilesSave<D>, Tiles<D>> t;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-
-  const uint16_t* qp = q + (static_cast<size_t>(b) * H + h) * S * D;
-  const uint16_t* kp = k + (static_cast<size_t>(b) * KV + kvh) * T * D;
-  const uint16_t* vp = v + (static_cast<size_t>(b) * KV + kvh) * T * D;
-  uint16_t* op = o + (static_cast<size_t>(b) * H + h) * S * D;
-
-  load_q<D>(t, qp, q0, S, tid);
-
-  const int r0 = warp * ROWS;
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kend = causal ? max(0, min(T, q_offset + q_last + 1)) : T;
-
-  // pass 1: running max and sum, then the row logsumexp
-  float lse[ROWS];
-  {
-    float l[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      lse[i] = NEG_INF;
-      l[i] = 0.f;
-    }
-    for (int k0 = 0; k0 < kend; k0 += BK) {
-      __syncthreads();
-      load_kv<D, false>(t, kp, vp, k0, T, tid);
-      __syncthreads();
-      float s[ROWS];
-      score_tile<D>(t, r0, lane, s);
-      const int kpos = k0 + lane;
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int qpos = q_offset + q0 + r0 + i;
-        const bool valid = kpos < T && (!causal || kpos <= qpos);
-        const float sv = valid ? s[i] * scale : NEG_INF;
-        const float m_new = fmaxf(lse[i], warp_max(sv));
-        const float p = valid ? expf(sv - m_new) : 0.f;
-        l[i] = l[i] * expf(lse[i] - m_new) + warp_sum(p);
-        lse[i] = m_new;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) lse[i] += logf(l[i] == 0.f ? 1.f : l[i]);
-  }
-
-  // pass 2: acc += round(exp(s - lse)) @ v, no rescale and no division;
-  // with SAVE also acc2 += bf16(exp(s - lse)) @ v
-  float acc[ROWS][DL], acc2[SAVE ? ROWS : 1][SAVE ? DL : 1];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < DL; ++j) acc[i][j] = 0.f;
-  if constexpr (SAVE) {
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < DL; ++j) acc2[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    load_kv<D, true>(t, kp, vp, k0, T, tid);
-    __syncthreads();
-    float s[ROWS];
-    score_tile<D>(t, r0, lane, s);
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qpos = q_offset + q0 + r0 + i;
-      const bool valid = kpos < T && (!causal || kpos <= qpos);
-      const float p = valid ? expf(s[i] * scale - lse[i]) : 0.f;
-      t.ps[r0 + i][lane] = qt_round<true>(round_bf16(p), p_fmt);
-      if constexpr (SAVE)
-        t.pu[r0 + i][lane] =
-            static_cast<uint16_t>(__float_as_uint(round_bf16(p)) >> 16);
-    }
-    __syncwarp();
-    if constexpr (SAVE)
-      accumulate_pv2<D>(t, r0, lane, acc, acc2);
-    else
-      accumulate_pv<D>(t, r0, lane, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + r0 + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DL; ++j) {
-      const float val = qt_round<true>(round_bf16(acc[i][j]), out_fmt);
-      op[static_cast<size_t>(row) * D + lane + 32 * j] =
-          static_cast<uint16_t>(__float_as_uint(val) >> 16);
-    }
-    if constexpr (SAVE) {
-      uint16_t* up = o_unq + (static_cast<size_t>(b) * H + h) * S * D;
-#pragma unroll
-      for (int j = 0; j < DL; ++j)
-        up[static_cast<size_t>(row) * D + lane + 32 * j] =
-            static_cast<uint16_t>(__float_as_uint(round_bf16(acc2[i][j])) >> 16);
-      if (lane == 0) lse_out[(static_cast<size_t>(b) * H + h) * S + row] = lse[i];
-    }
-  }
+template <int D, bool TWO_PASS, bool SAVE>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           void* o_unq, int B, int H, int KV, int S, int T, float scale,
+           int causal, int q_offset, QtFormat p_fmt, QtFormat out_fmt,
+           void* stream) {
+  auto kern = flash_fwd<D, TWO_PASS, SAVE>;
+  constexpr int smem = Layout<D>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  kern<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
+      static_cast<float*>(lse), static_cast<uint16_t*>(o_unq), H, KV, S, T,
+      scale, causal, q_offset, p_fmt, out_fmt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -408,23 +649,16 @@ const char* qt_error_string(int err) {
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int H, int KV, int S, int T, int D,
                    float scale, int causal, int q_offset, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  auto* op = static_cast<uint16_t*>(out);
-  auto* lp = static_cast<float*>(lse);
-  if (D == 128) {
-    flash_fwd<128><<<grid, NWARPS * 32, 0, st>>>(qp, kp, vp, op, lp, H, KV, S,
-                                                 T, scale, causal, q_offset);
-  } else if (D == 64) {
-    flash_fwd<64><<<grid, NWARPS * 32, 0, st>>>(qp, kp, vp, op, lp, H, KV, S,
-                                                T, scale, causal, q_offset);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const QtFormat none{};
+  if (D == 128)
+    return launch<128, false, false>(q, k, v, out, lse, nullptr, B, H, KV, S,
+                                     T, scale, causal, q_offset, none, none,
+                                     stream);
+  if (D == 64)
+    return launch<64, false, false>(q, k, v, out, lse, nullptr, B, H, KV, S,
+                                    T, scale, causal, q_offset, none, none,
+                                    stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // As flash_attn_fwd, with p rounded to p_fmt and the output to out_fmt
@@ -435,29 +669,21 @@ int flash_attn_fwd_two_pass(const void* q, const void* k, const void* v,
                             int KV, int S, int T, int D, float scale,
                             int causal, int q_offset, QtFormat p_fmt,
                             QtFormat out_fmt, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const uint16_t*>(k);
-  const auto* vp = static_cast<const uint16_t*>(v);
-  auto* op = static_cast<uint16_t*>(out);
-  auto* lp = static_cast<float*>(lse);
-  auto* up = static_cast<uint16_t*>(o_unq);
-  if ((lp == nullptr) != (up == nullptr))
+  if ((lse == nullptr) != (o_unq == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-#define QT_TWO_PASS(DD, SV)                                                   \
-  flash_fwd_two_pass<DD, SV><<<grid, NWARPS * 32, 0, st>>>(                   \
-      qp, kp, vp, op, lp, up, H, KV, S, T, scale, causal, q_offset, p_fmt,    \
-      out_fmt)
+#define QT_TWO_PASS(DD, SV)                                                  \
+  return launch<DD, true, SV>(q, k, v, out, lse, o_unq, B, H, KV, S, T,      \
+                              scale, causal, q_offset, p_fmt, out_fmt, stream)
   if (D == 128) {
-    if (lp) QT_TWO_PASS(128, true); else QT_TWO_PASS(128, false);
-  } else if (D == 64) {
-    if (lp) QT_TWO_PASS(64, true); else QT_TWO_PASS(64, false);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (lse) QT_TWO_PASS(128, true);
+    QT_TWO_PASS(128, false);
+  }
+  if (D == 64) {
+    if (lse) QT_TWO_PASS(64, true);
+    QT_TWO_PASS(64, false);
   }
 #undef QT_TWO_PASS
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

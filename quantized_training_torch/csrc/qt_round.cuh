@@ -1,8 +1,9 @@
 // Elementwise rounding to the package's low-precision formats, as device
 // code shared by the kernels that round: quantize_elemwise.cu (alone),
-// flash_attn_fwd.cu (probabilities and output), flash_attn_bwd.cu (error
-// taps and the dv probabilities; its wrappers refuse the nf and cast
-// kinds) and quantized_matmul.cu (the A operand).  One implementation, held bit-equal to the plain PyTorch
+// flash_attn_fwd.cu (probabilities and output, on register fragments with
+// qt_round_all), flash_attn_bwd.cu (error taps and the dv probabilities;
+// its wrappers refuse the nf and cast kinds) and quantized_matmul.cu (the A
+// operand).  One implementation, held bit-equal to the plain PyTorch
 // quantizers (quantized_training_torch/numerics/) over all 2^16 bf16
 // patterns on the card.
 //
@@ -190,6 +191,30 @@ __device__ __forceinline__ float qt_round(float x, const QtFormat& f) {
     default: return __int_as_float(0x7fc00000);
   }
   return BF16 ? qt_bf16(y) : y;
+}
+
+// qt_round over a register array with the kind switched once, not per
+// element: each case runs qt_round itself on a copy of the format whose
+// kind is a constant, so the values are qt_round's bit for bit.
+template <bool BF16, int KIND, int N>
+__device__ __forceinline__ void qt_round_each(float (&x)[N], QtFormat f) {
+  f.kind = KIND;
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = qt_round<BF16>(x[i], f);
+}
+
+template <bool BF16, int N>
+__device__ __forceinline__ void qt_round_all(float (&x)[N], const QtFormat& f) {
+  switch (f.kind) {
+    case QT_NONE: return;
+    case QT_POSIT: qt_round_each<BF16, QT_POSIT>(x, f); return;
+    case QT_FP8: qt_round_each<BF16, QT_FP8>(x, f); return;
+    case QT_FP: qt_round_each<BF16, QT_FP>(x, f); return;
+    case QT_INT: qt_round_each<BF16, QT_INT>(x, f); return;
+    case QT_NF: qt_round_each<BF16, QT_NF>(x, f); return;
+    case QT_CAST: qt_round_each<BF16, QT_CAST>(x, f); return;
+    default: qt_round_each<BF16, -1>(x, f); return;
+  }
 }
 
 // The value of a two's-complement posit(nbits, es) code (its low nbits

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 import torch
 
 __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "QT_CODEBOOK", "QtFormat", "build",
-           "load", "check", "qt_format", "stream_ptr"]
+           "load", "sass", "check", "qt_format", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -103,6 +103,15 @@ def load(name: str) -> ctypes.CDLL:
         lib.qt_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def sass(name: str) -> str:
+    """The machine code of the library for ``csrc/<name>.cu``, built first
+    if needed, as the toolkit's ``cuobjdump -sass`` prints it."""
+    load(name)
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(_paths(name)[1])],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

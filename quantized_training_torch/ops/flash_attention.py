@@ -44,9 +44,10 @@ from ..numerics import QuantFn
 from ..quantize.fake_quant import straight_through
 
 __all__ = ["flash_attention", "naive_attention", "attention_forward_plain",
-           "flash_forward_train", "flash_backward", "flash_bwd_di",
-           "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_di_plain",
-           "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "NEG_INF"]
+           "flash_forward_train", "forward_plan", "FWD_FORMS",
+           "flash_backward", "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_di_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
+           "NEG_INF"]
 
 NEG_INF = -2.0 ** 30  # large-but-safe additive mask
 
@@ -394,6 +395,39 @@ def flash_backward(q, k, v, lse, o_unq, do, *, scale: float,
 
 
 # ------------------------------------------------------------- the forward
+# The forward kernel's forms (csrc/flash_attn_fwd.cu): single pass, single
+# pass with the row logsumexp, two pass (p_qfn), two pass with lse and o_unq.
+FWD_FORMS = ("single", "single_lse", "two_pass", "two_pass_lse")
+SMEM_PER_BLOCK = 232_448      # an H100 block's opt-in shared memory
+
+
+class FwdPlan(NamedTuple):
+    block_q: int        # query rows per block: two warpgroups of 64
+    block_k: int        # keys per tile
+    stages: int         # depth of the K/V ring
+    threads: int
+    grid: tuple         # (B * H, q tiles), q tiles launched longest first
+    smem_bytes: int     # dynamic shared memory per block
+
+
+def forward_plan(form: str, D: int, B: int = 1, H: int = 1,
+                 S: int = 1) -> FwdPlan:
+    """The forward kernel's launch for ``form`` at head dim D, as
+    ``csrc/flash_attn_fwd.cu`` makes it (``Layout<D>``): a 128 x D Q tile and
+    three stages of a 64-key K tile and V tile, bf16, in shared memory (pass
+    1 of the two-pass forms leaves the V half idle), plus 1024 bytes to
+    align the swizzled tiles.  Raises for a form or a D the kernel does not
+    take."""
+    if form not in FWD_FORMS:
+        raise ValueError(f"flash_attention kernel: no form {form!r}")
+    if D not in (64, 128):
+        raise ValueError(f"flash_attention kernel: D={D} (must be 64 or 128)")
+    block_q, block_k, stages = 128, 64, 3
+    smem = block_q * D * 2 + stages * 2 * block_k * D * 2 + 1024
+    return FwdPlan(block_q, block_k, stages, 256,
+                   (B * H, -(-S // block_q)), smem)
+
+
 def _lib():
     lib = _cuda.load("flash_attn_fwd")
     if lib.flash_attn_fwd.argtypes is None:

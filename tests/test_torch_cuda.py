@@ -2,6 +2,7 @@
 under error taps runs kernels 2-4 and never their plain versions, an
 unpacked 8-bit Adam leaf launches kernel 13 and a packed one kernel 14,
 the int8 decode attention's integer-dot and K^T forms launch their kernel,
+the flash forward runs every form on the card within its bounds,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
 kernels and agree with their plain versions, the rounding kernel takes
 the NormalFloat codebooks and native casts bit for bit, and both decode
@@ -429,3 +430,99 @@ def test_decode_kernels_refuse_uninstantiated_forms(cuda_device):
             kivi_attention.kivi_decode_attention(
                 q, *k[:6], k.k_res.bfloat16(), k.v_res.bfloat16(), lens,
                 lens, bits_k=2, bits_v=2)
+
+
+# ---- the flash forward (kernel 1) on the tensor cores, every form ----------
+# Bounds (atol, rtol) are chip_smoke.py's for each form: the single pass
+# rounds p to bf16 before the running rescale (4e-3 + 0.02|plain|); the
+# two-pass form's p = exp(s - lse) lands a posit step away wherever a score
+# is an ulp off at a rounding boundary, and the plain version's f32 GEMM
+# scores are ulps off the exact dot themselves, so 6e-3 + 0.02|exact| is
+# held against the exact reference below and the plain version is a floor
+# reading (every output within 3e-2 + 0.02|plain|, at most 1e-5 of them
+# outside 6e-3 + 0.02|plain|); the training form's lse (1e-5) and o_unq
+# (2e-3) sum in other orders, and its o is the inference form's bit for bit.
+_FWD_SHAPES = [(200, 200, 0), (128, 640, 512)]       # (S, T, q_offset)
+
+
+def _exact_two_pass(q, k, v, scale, q_offset, p_qfn):
+    """The two-pass form at the TPU kernel's rounding points with no
+    summation error of its own (chip_smoke.py's exact_two_pass, causal at
+    q_offset): each score the exact dot rounded once to f32 and scaled in
+    f32, the logsumexp in float64, p = exp(s - lse) to f32, bf16 and
+    ``p_qfn``, round(p) @ v in float64 rounded to bf16."""
+    H, S, T = q.shape[1], q.shape[2], k.shape[2]
+    k, v = (t.repeat_interleave(H // t.shape[1], 1) for t in (k, v))
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)).float() * scale
+    seen = (torch.arange(T, device=q.device)[None, :]
+            <= torch.arange(S, device=q.device)[:, None] + q_offset)
+    s = torch.where(seen, s, torch.full_like(s, fa.NEG_INF)).double()
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True)).float()
+    pr = p_qfn.plain(p.to(torch.bfloat16)).double()
+    return torch.matmul(pr, v.double()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", ["single", "single_lse", "two_pass",
+                                  "two_pass_lse"])
+@pytest.mark.parametrize("KV", [8, 2], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,q_offset", _FWD_SHAPES,
+                         ids=["ragged", "offset"])
+def test_flash_forward_forms_match_plain(cuda_device, form, KV, D, S, T,
+                                         q_offset):
+    from quantized_training_torch.numerics import quantize_fn_unit
+    from quantized_training_torch.ops import quantize_elemwise as qe
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B, H = 2, 8
+    q = _rnd(gen, B, H, S, D)
+    k, v = _rnd(gen, B, KV, T, D), _rnd(gen, B, KV, T, D)
+    scale = D ** -0.5
+    hooks = dict(scale=scale, q_offset=q_offset)
+    if form.startswith("two_pass"):
+        hooks["p_qfn"] = quantize_fn_unit("posit8_1")
+    counter = "launches" if form.startswith("single") else "two_pass_launches"
+    before = (getattr(fa.flash_attention, counter),
+              fa.flash_attention.lse_launches)
+    save = form.endswith("_lse")
+    if save:
+        o, lse, o_unq = fa.flash_forward_train(q, k, v, **hooks)
+    else:
+        o = fa.flash_attention(q, k, v, **hooks)
+    torch.cuda.synchronize()
+    assert (getattr(fa.flash_attention, counter) - before[0],
+            fa.flash_attention.lse_launches - before[1]) == (1, int(save))
+    o_p, lse_p, o_unq_p = fa.attention_forward_plain(q, k, v, **hooks)
+    assert torch.isfinite(o.float()).all()
+    if form.startswith("two_pass"):
+        exact = _exact_two_pass(q, k, v, scale, q_offset, hooks["p_qfn"])
+        torch.testing.assert_close(o.float(), exact.float(), atol=6e-3,
+                                   rtol=2e-2)
+        err = (o.float() - o_p.float()).abs()
+        assert (err <= 3e-2 + 2e-2 * o_p.float().abs()).all()
+        assert (err > 6e-3 + 2e-2 * o_p.float().abs()).float().mean() <= 1e-5
+    else:
+        torch.testing.assert_close(o.float(), o_p.float(), atol=4e-3,
+                                   rtol=2e-2)
+    if save:
+        torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=0.0)
+    if form == "single_lse":
+        assert o_unq is o
+    if form == "two_pass_lse":
+        torch.testing.assert_close(o_unq.float(), o_unq_p.float(), atol=2e-3,
+                                   rtol=2e-2)
+        assert torch.equal(o, fa.flash_attention(q, k, v, **hooks))
+    if form == "two_pass":
+        p8 = quantize_fn("posit8_1")
+        assert torch.equal(fa.flash_attention(q, k, v, out_qfn=p8, **hooks),
+                           qe.quantize_elemwise(o, p8.fmt))
+
+
+def test_flash_forward_refuses_other_head_dims(cuda_device):
+    """A head dim the kernel does not take raises in the wrapper before any
+    launch."""
+    q = torch.zeros((1, 2, 64, 96), device=cuda_device, dtype=torch.bfloat16)
+    before = (fa.flash_attention.launches, fa.flash_attention.two_pass_launches)
+    with pytest.raises(ValueError, match="D must be 64 or 128"):
+        fa.flash_attention(q, q, q)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.two_pass_launches) == before

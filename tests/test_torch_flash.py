@@ -166,3 +166,47 @@ def test_two_pass_plain_bit_equal_to_tilewise_simulation(H, KV, causal, p_fmt,
                             causal=causal, out_qfn=out_qfn)
     assert got.dtype == want.dtype
     assert torch.equal(got, want)
+
+
+# ---- the CUDA forward's launch plan (checked here; launched on the card) ----
+def _kernel_constants():
+    """BQ, BK, NSTAGE and NTHREADS as csrc/flash_attn_fwd.cu declares them."""
+    import re
+    from pathlib import Path
+    import quantized_training_torch
+    src = (Path(quantized_training_torch.__file__).parent / "csrc"
+           / "flash_attn_fwd.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+            for name in ("BQ", "BK", "NSTAGE", "NTHREADS")}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("form", ["single", "single_lse", "two_pass",
+                                  "two_pass_lse"])
+def test_forward_launch_plan_fits_one_block(form, D):
+    """Every form's tiles fit an H100 block's shared memory, and the plan
+    is the kernel source's: a 128 x D Q tile and three stages of a 64-key
+    K and V tile in bf16, 1024 bytes of alignment, one block per (head,
+    batch) and 128-row q tile."""
+    from quantized_training_torch.ops.flash_attention import (
+        SMEM_PER_BLOCK, forward_plan)
+    c = _kernel_constants()
+    plan = forward_plan(form, D, B=3, H=8, S=1000)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK == 232_448
+    assert (plan.block_q, plan.block_k, plan.stages, plan.threads) == (
+        c["BQ"], c["BK"], c["NSTAGE"], c["NTHREADS"])
+    assert plan.smem_bytes == (c["BQ"] * D * 2
+                               + c["NSTAGE"] * 2 * c["BK"] * D * 2 + 1024)
+    assert plan.grid == (24, 8)
+
+
+def test_forward_launch_plan_refuses_other_head_dims():
+    """A head dim the kernel does not take, or a form it does not have,
+    raises in the launch plan (on the card the wrapper's operand check
+    raises before any launch: tests/test_torch_cuda.py)."""
+    from quantized_training_torch.ops.flash_attention import forward_plan
+    for D in (16, 32, 96, 256):
+        with pytest.raises(ValueError, match="must be 64 or 128"):
+            forward_plan("single", D)
+    with pytest.raises(ValueError, match="no form"):
+        forward_plan("three_pass", 128)
