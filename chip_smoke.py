@@ -114,6 +114,20 @@ kernel's times as constants; and phase 3 adds rows for the w4 GEMM at
 prefill (M=2048) and the flash backward kernels as a group against SDPA's
 backward.
 
+Slice 9 redesigns kernels 2-4 (the flash backward's two CUDA kernels) for
+the tensor cores: phase 1 requires wgmma (HGMMA) in every kernel function
+of both flash libraries; phase 2/3 adds a q_offset case with T > S (D=64,
+group 4), a repeat check (the same call twice gives the same bits for di,
+dq, dk_h and dv_h), and planted faults of the new tilings (the row kernel
+skipping a key tile, the column kernel a query tile); under the error
+tap the backward bounds are held against a float64 reference at the
+kernels' rounding points (exact_bwd), the plain version a floor reading,
+with seeds 1-4 of the path shape printed; phase 3 adds a row
+for the backward without hooks (the bf16 arm's), counts seven products in
+the tapped group's bound, and the timer spins the device before each start
+event so that every time is the device's (SDPA's backward and the groups
+are also printed without the spin); phase 8 profiles both arms.
+
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -160,19 +174,40 @@ def bound_ms(nbytes, nops):
 
 class Timer:
     """Median device time of one call, with the 50 MB L2 cache flushed
-    before each launch (the serving path finds weights and caches cold)."""
+    before each launch (the serving path finds weights and caches cold).
+    Before each start event the device spins (``torch.cuda._sleep``) for
+    twice the host's time to enqueue the call (measured once, at most 50
+    ms), so that every launch of the call is queued before the device
+    reaches the event and the events time the device's work, not the host's
+    gaps between launches (an autograd call's host work, for one);
+    ``spin=False`` reads without the spin."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = 1e7 / start.elapsed_time(end)
 
-    def __call__(self, fn, reps=15):
+    def __call__(self, fn, reps=15, spin=True):
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        cycles = int(self.cycles_per_ms * min(2 * host_ms + 0.05, 50.0))
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -575,6 +610,40 @@ def exact_two_pass(torch, q, k, v, scale, p_qfn):
     del s
     pr = p_qfn.plain(p.to(torch.bfloat16)).double()
     return torch.matmul(pr, v.double()).to(torch.bfloat16)
+
+
+def exact_bwd(torch, q, k, v, do, lse, di, *, scale, q_offset, p_qfn,
+              err_qfn):
+    """The flash backward at the TPU kernels' rounding points with no
+    summation error of its own (causal at q_offset): each q.k and dO.v dot
+    exact (float64) and rounded once to f32; p = exp(s * scale - lse) in
+    f32, each step rounded as the kernels round it (the card's expf, which
+    torch.exp also takes); dp rounded to bf16 and through ``err_qfn``; di
+    the float64 row sum of p * err(dp); ds = p * (err(dp) - di) * scale in
+    f32 from the shared input ``di``, rounded to bf16; dq, dk_h and dv_h
+    (from round(bf16(p)), or bf16(p) without ``p_qfn``) as float64
+    products rounded to bf16.  Returns (di, dq, dk_h, dv_h)."""
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    H, S, T = q.shape[1], q.shape[2], k.shape[2]
+    k, v = (t.repeat_interleave(H // t.shape[1], 1) for t in (k, v))
+    s = torch.matmul(q.to(f64), k.to(f64).transpose(-1, -2)).to(f32)
+    seen = (torch.arange(T, device=q.device)[None, :]
+            <= torch.arange(S, device=q.device)[:, None] + q_offset)
+    p = torch.where(seen, torch.exp(s * scale - lse[..., None]),
+                    torch.zeros((), dtype=f32, device=q.device))
+    del s, seen
+    dp = torch.matmul(do.to(f64), v.to(f64).transpose(-1, -2)).to(f32)
+    dp = err_qfn.plain(dp.to(bf16)).to(f32)
+    di_x = torch.sum(p.to(f64) * dp.to(f64), dim=-1).to(f32)
+    ds = (p * (dp - di[..., None]) * scale).to(bf16).to(f64)
+    del dp
+    dq = torch.matmul(ds, k.to(f64)).to(bf16)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(f64)).to(bf16)
+    del ds
+    pv = p.to(bf16) if p_qfn is None else p_qfn.plain(p.to(bf16))
+    del p
+    dv = torch.matmul(pv.to(f64).transpose(-1, -2), do.to(f64)).to(bf16)
+    return di_x, dq, dk, dv
 
 
 def rounding_kernel_phases(torch, timer):
@@ -1001,6 +1070,31 @@ def causal_flops(B, H, S, D, products):
     return products * B * H * S * S * D
 
 
+def skipped_tile_plain(torch, fa, q, k, v, do, lse, di, *, scale, q_offset,
+                       p_qfn, err_qfn, keys=None, queries=None):
+    """The plain backward (flash_bwd_*_plain's formulas, causal) of kernels
+    that skip one tile: p zeroed over the keys ``keys`` (a row kernel's key
+    tile) or the query rows ``queries`` (a column kernel's query tile).
+    Returns (di, dq, dk_h, dv_h)."""
+    bf16 = torch.bfloat16
+    H = q.shape[1]
+    p = fa._probs(q, k, lse, scale=scale, causal=True, q_offset=q_offset)
+    if keys is not None:
+        p[..., keys] = 0
+    if queries is not None:
+        p[:, :, queries] = 0
+    dp = fa._dp(do, v, err_qfn, H)
+    di_f = torch.sum(p * dp, dim=-1)
+    ds = (p * (dp - di[..., None]) * scale).to(bf16).float()
+    del dp
+    dq = torch.matmul(ds, fa._expand(k, H).float()).to(bf16)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(bf16)
+    del ds
+    pv = p if p_qfn is None else p_qfn.plain(p.to(bf16)).float()
+    dv = torch.matmul(pv.transpose(-1, -2), do.float()).to(bf16)
+    return di_f, dq, dk, dv
+
+
 def training_kernel_phases(torch, timer):
     """Slice 3's kernels: the flash forward's training form (logsumexp and
     o_unq), the three flash backward kernels and the packed 8-bit Adam
@@ -1043,24 +1137,50 @@ def training_kernel_phases(torch, timer):
     #    one step away in the rounded operand; read 7.8e-3; fault 7.8e-2.
     tol = {"lse": (1e-5, 0.0), "o_unq": (2e-3, 2e-2), "di": (2e-5, 1e-4),
            "dq": (2e-3, 2e-2), "dk": (2e-3, 2e-2), "dv": (1.5e-2, 2e-2)}
+    # Under the error tap those bounds are held against the exact reference
+    # (exact_bwd), and the plain version is a floor reading (atol, and the
+    # share of outputs allowed outside the tight bound).  The tap rounds dp
+    # to bf16 and posit8, so where a dot's last f32 bit differs, a dp at a
+    # bf16 rounding midpoint lands a posit step away (di moves by p times
+    # that step): the plain version's f32 GEMM sums differ from the exact
+    # dot there, as the CUDA-core kernels' did, since they summed in the
+    # GEMM's order; the tensor-core kernels take the exact dot wherever
+    # their own sum lies that near a midpoint (csrc/flash_attn_bwd.cu).
+    # Floors from the H100 at seeds 0-4 of the path shape (kernel against
+    # plain): di up to 3.85e-2 with at most 6.0e-4 of the rows outside the
+    # tight bound, dq 7.4e-3 and dk 7.8e-3 with about 1e-5 outside at seed
+    # 0 (at most 3.6e-7 at seeds 1-4), dv 1.6e-2 with none; the kernel
+    # against the exact reference none outside.
+    floor = {"di": (5e-2, 2e-3), "dq": (3e-2, 5e-5), "dk": (3e-2, 5e-5),
+             "dv": (3e-2, 1e-5)}
     log("phase 2/3: flash training forward and backward kernels "
         f"(tolerances atol, rtol: {tol})")
     max_err = {k: 0.0 for k in ("fwd", "di", "dq", "dkv")}
+    # (label, B, H, KV, S, T, q_offset, D, hooks, generator): the q_offset
+    # case draws from its own generator, so that the other cases keep their
+    # inputs
     shapes = [("path: B=4 H=16 S=1024 D=128, p and err posit8_1",
-               4, 16, 16, 1024, 128, True),
+               4, 16, 16, 1024, 1024, 0, 128, True, gen),
               ("bf16 arm: B=4 H=16 S=1024 D=128, no hooks",
-               4, 16, 16, 1024, 128, False),
+               4, 16, 16, 1024, 1024, 0, 128, False, gen),
               ("GQA: B=2 H=8 KV=2 S=600 D=64, p and err posit8_1",
-               2, 8, 2, 600, 64, True)]
-    for label, B, H, KV, S, D, hooks in shapes:
+               2, 8, 2, 600, 600, 0, 64, True, gen),
+              ("q_offset: B=2 H=8 KV=2 S=200 T=456 q_offset=256 D=64, p and "
+               "err posit8_1", 2, 8, 2, 200, 456, 256, 64, True,
+               torch.Generator(device=dev).manual_seed(SEED + 10))]
+    for label, B, H, KV, S, T, q_offset, D, hooks, g in shapes:
         log(f"  {label}")
         scale = 1 / math.sqrt(D)
-        q = randn(B, H, S, D, dtype=bf16)
-        k = randn(B, KV, S, D, dtype=bf16)
-        v = randn(B, KV, S, D, dtype=bf16)
-        do = randn(B, H, S, D, dtype=bf16)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(bf16)
+        q = draw(B, H, S, D)
+        k = draw(B, KV, T, D)
+        v = draw(B, KV, T, D)
+        do = draw(B, H, S, D)
         p_qfn, err_qfn = (pq, p8) if hooks else (None, None)
-        fwd = dict(scale=scale, p_qfn=p_qfn, out_qfn=p8 if hooks else None)
+        fwd = dict(scale=scale, p_qfn=p_qfn, out_qfn=p8 if hooks else None,
+                   q_offset=q_offset)
         o, lse, o_unq = fa.flash_forward_train(q, k, v, **fwd)
         o_p, lse_p, o_unq_p = fa.attention_forward_plain(q, k, v, **fwd)
         torch.cuda.synchronize()
@@ -1078,7 +1198,7 @@ def training_kernel_phases(torch, timer):
             failures.append("single-pass o_unq is not its output")
         # planted faults: rows 32.. drop key tile 0..31 from the lse; o_unq
         # accumulated from the rounded p
-        s = fa._scores(q, k, scale=scale, causal=True, q_offset=0)
+        s = fa._scores(q, k, scale=scale, causal=True, q_offset=q_offset)
         s[:, :, 32:, :32] = fa.NEG_INF
         planted_fault("lse, rows 32.. without keys 0..31", lse,
                       torch.logsumexp(s, dim=-1), *tol["lse"], failures)
@@ -1086,41 +1206,77 @@ def training_kernel_phases(torch, timer):
         if hooks:
             planted_fault("o_unq from the rounded p", o_unq,
                           fa.naive_attention(q, k, v, scale=scale,
-                                             p_qfn=p_qfn),
+                                             p_qfn=p_qfn, q_offset=q_offset),
                           *tol["o_unq"], failures)
-        bwd = dict(scale=scale, err_qfn=err_qfn)
+        bwd = dict(scale=scale, err_qfn=err_qfn, q_offset=q_offset)
+
+        def kernels():
+            d = fa.flash_bwd_di(q, k, v, do, lse_p, **bwd) if hooks else None
+            return (d, fa.flash_bwd_dq(q, k, v, do, lse_p, di_p, **bwd),
+                    *fa.flash_bwd_dkv(q, k, v, do, lse_p, di_p, p_qfn=p_qfn,
+                                      **bwd))
         if hooks:
-            di = fa.flash_bwd_di(q, k, v, do, lse_p, **bwd)
             di_p = fa.flash_bwd_di_plain(q, k, v, do, lse_p, **bwd)
-            torch.cuda.synchronize()
-            max_err["di"] = max(max_err["di"],
-                                check("    di", di, di_p, *tol["di"]))
+        else:
+            di_p = torch.sum(do.float() * o_unq_p.float(), dim=-1)
+        di, dq, dk, dv = kernels()
+        dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, di_p, **bwd)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, di_p,
+                                            p_qfn=p_qfn, **bwd)
+        torch.cuda.synchronize()
+        outputs = [("di", "di", di, di_p), ("dq", "dq", dq, dq_p),
+                   ("dk_h", "dk", dk, dk_p), ("dv_h", "dv", dv, dv_p)]
+        if hooks:
+            # the error tap: the tight bounds against the exact reference,
+            # the plain version a floor reading (see tol above)
+            exact = exact_bwd(torch, q, k, v, do, lse_p, di_p, p_qfn=p_qfn,
+                              **bwd)
+            for (name, key, got, plain), ref in zip(outputs, exact):
+                err_x = check(f"    {name}, against the exact reference",
+                              got, ref, *tol[key])
+                check_close(f"    {name}, the plain version against the "
+                            f"exact reference (a reading, not a check)",
+                            plain, ref, *tol[key])
+                if not floor_reading(
+                        f"    {name}, against the plain version", got, plain,
+                        *floor[key], tol[key][0], tol[key][1])[0]:
+                    failures.append(f"{name} floor reading {label}")
+                group = {"di": "di", "dq": "dq"}.get(key, "dkv")
+                max_err[group] = max(max_err[group], err_x)
+            del exact
             planted_fault("di from o under err", di,
                           torch.sum(do.float() * o_unq_p.float(), dim=-1),
                           *tol["di"], failures)
         else:
-            di_p = torch.sum(do.float() * o_unq_p.float(), dim=-1)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse_p, di_p, **bwd)
-        dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, di_p, **bwd)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, di_p, p_qfn=p_qfn, **bwd)
-        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, di_p,
-                                            p_qfn=p_qfn, **bwd)
+            for name, key, got, plain in outputs[1:]:
+                group = {"dq": "dq"}.get(key, "dkv")
+                max_err[group] = max(max_err[group], check(
+                    f"    {name}", got, plain, *tol[key]))
+        # the same call again gives the same bits (every output one owner)
+        again = kernels()
         torch.cuda.synchronize()
-        max_err["dq"] = max(max_err["dq"], check("    dq", dq, dq_p, *tol["dq"]))
-        max_err["dkv"] = max(max_err["dkv"],
-                             check("    dk_h", dk, dk_p, *tol["dk"]),
-                             check("    dv_h", dv, dv_p, *tol["dv"]))
+        differ = {name: bit_mismatches(a, b)[0] for name, a, b in zip(
+            ("di", "dq", "dk_h", "dv_h"), (di, dq, dk, dv), again)
+            if a is not None}
+        log(f"    the kernels again on the same inputs: lanes that differ "
+            f"{differ}")
+        if any(differ.values()):
+            failures.append(f"flash backward does not repeat: {label}")
+        del again
         if hooks:
             planted_fault("dq with dp left untapped", dq,
                           fa.flash_bwd_dq_plain(q, k, v, do, lse_p, di_p,
-                                                scale=scale), *tol["dq"],
-                          failures)
+                                                scale=scale,
+                                                q_offset=q_offset),
+                          *tol["dq"], failures)
             dk_f, dv_f = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, di_p,
-                                                scale=scale, err_qfn=err_qfn)
+                                                scale=scale, err_qfn=err_qfn,
+                                                q_offset=q_offset)
             planted_fault("dv from the unrounded p", dv, dv_f, *tol["dv"],
                           failures)
             dk_f, _ = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, di_p,
-                                             scale=scale, p_qfn=p_qfn)
+                                             scale=scale, p_qfn=p_qfn,
+                                             q_offset=q_offset)
             planted_fault("dk with dp left untapped", dk, dk_f, *tol["dk"],
                           failures)
         else:
@@ -1133,7 +1289,59 @@ def training_kernel_phases(torch, timer):
                                                 scale=scale)
             planted_fault("dv skips query tile 512..543", dv, dv_f,
                           *tol["dv"], failures)
+        if S == 1024:
+            # the new tilings' faults: the row kernel skips key tile
+            # 64..127, the column kernel query tile 512..543
+            di_f, dq_f, _, _ = skipped_tile_plain(
+                torch, fa, q, k, v, do, lse_p, di_p, keys=slice(64, 128),
+                p_qfn=p_qfn, **bwd)
+            if hooks:
+                planted_fault("di, the row kernel skips key tile 64..127",
+                              di, di_f, *tol["di"], failures)
+            planted_fault("dq, the row kernel skips key tile 64..127", dq,
+                          dq_f, *tol["dq"], failures)
+            _, _, dk_f, dv_f = skipped_tile_plain(
+                torch, fa, q, k, v, do, lse_p, di_p, queries=slice(512, 544),
+                p_qfn=p_qfn, **bwd)
+            planted_fault("dk_h, the column kernel skips query tile "
+                          "512..543", dk, dk_f, *tol["dk"], failures)
+            if hooks:  # without them, the dv fault above is this one
+                planted_fault("dv_h, the column kernel skips query tile "
+                              "512..543", dv, dv_f, *tol["dv"], failures)
+            del di_f, dq_f
         del dk_f, dv_f, dk_p, dv_p, dq_p
+
+    # A reading, not a check: the error-tapped path shape at seeds 1-4
+    log("phase 2/3: flash backward, p and err posit8_1, B=4 H=16 S=1024 "
+        "D=128 at seeds 1-4 (a reading, not a check): max |kernel - exact|, "
+        "|plain - exact|, |kernel - plain|, each with the share of outputs "
+        "outside the output's tight bound")
+    for seed in (1, 2, 3, 4):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        B, H, S, D = 4, 16, 1024, 128
+        q, k, v, do = (torch.randn((B, H, S, D), generator=g,
+                                   device=dev).to(bf16) for _ in range(4))
+        bwd = dict(scale=1 / math.sqrt(D), err_qfn=p8, q_offset=0)
+        _, lse_s, _ = fa.attention_forward_plain(q, k, v, scale=bwd["scale"],
+                                                 p_qfn=pq)
+        di_s = fa.flash_bwd_di_plain(q, k, v, do, lse_s, **bwd)
+        got = (fa.flash_bwd_di(q, k, v, do, lse_s, **bwd),
+               fa.flash_bwd_dq(q, k, v, do, lse_s, di_s, **bwd),
+               *fa.flash_bwd_dkv(q, k, v, do, lse_s, di_s, p_qfn=pq, **bwd))
+        plain = (di_s, fa.flash_bwd_dq_plain(q, k, v, do, lse_s, di_s, **bwd),
+                 *fa.flash_bwd_dkv_plain(q, k, v, do, lse_s, di_s, p_qfn=pq,
+                                         **bwd))
+        exact = exact_bwd(torch, q, k, v, do, lse_s, di_s, p_qfn=pq, **bwd)
+        for name, a, pl, ex in zip(("di", "dq", "dk", "dv"), got, plain,
+                                   exact):
+            atol, rtol = tol[name]
+            read = []
+            for x, y in ((a, ex), (pl, ex), (a, pl)):
+                err = (x.float() - y.float()).abs()
+                share = (err > atol + rtol * y.float().abs()).float().mean()
+                read.append(f"{float(err.max()):.4g} ({float(share):.2g})")
+            log(f"  seed {seed}, {name}: " + ", ".join(read))
+        del q, k, v, do, got, plain, exact
 
     # times at the path's shape and hooks
     B, H, S, D = 4, 16, 1024, 128
@@ -1145,8 +1353,10 @@ def training_kernel_phases(torch, timer):
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
                                                            is_causal=True)
-    sdpa_bwd = timer(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                                 retain_graph=True))
+    sdpa_grad = lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                            retain_graph=True)
+    sdpa_bwd = timer(sdpa_grad)
+    sdpa_bwd_host = timer(sdpa_grad, spin=False)
     sdpa_fwd = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True))
     del out, qg, kg, vg
@@ -1198,23 +1408,28 @@ def training_kernel_phases(torch, timer):
             f"posit8_1; library = {lib_what}", ms=ms, plain_ms=plain_ms,
             library_ms=lib, bound_ms=b, bound_by=by)
     # the three backward kernels as a group, as the train step runs them,
-    # against SDPA's whole backward: the least work is five causal products
-    # (q.k, dO.v, dV, dQ, dK) over q, k, v, dO, lse in and dq, dk, dv out
+    # against SDPA's whole backward.  Under err_qfn the least work is seven
+    # causal products, not SDPA's five: di's pass recomputes q.k and dO.v,
+    # which no backward avoids while a tap sits before the softmax
+    # Jacobian; then dQ, dV and dK.  Bytes: q, k, v, dO, lse in; dq, dk, dv
+    # out.
     def bwd_group(di_fn, dq_fn, dkv_fn):
         d = di_fn(q, k, v, do, lse, scale=scale, err_qfn=p8)
         dq_fn(q, k, v, do, lse, d, scale=scale, err_qfn=p8)
         dkv_fn(q, k, v, do, lse, d, scale=scale, p_qfn=pq, err_qfn=p8)
 
-    ms = timer(lambda: bwd_group(fa.flash_bwd_di, fa.flash_bwd_dq,
-                                 fa.flash_bwd_dkv), reps=7)
+    group = lambda: bwd_group(fa.flash_bwd_di, fa.flash_bwd_dq,
+                              fa.flash_bwd_dkv)
+    ms = timer(group, reps=7)
     plain_ms = timer(lambda: bwd_group(fa.flash_bwd_di_plain,
                                        fa.flash_bwd_dq_plain,
                                        fa.flash_bwd_dkv_plain), reps=3)
-    b, by = bound_ms(7 * tensor + row, causal_flops(B, H, S, D, 5))
+    b, by = bound_ms(7 * tensor + row, causal_flops(B, H, S, D, 7))
     log(f"  time flash backward (di, dq, dkv together) B={B} H={H} S={S} "
         f"D={D}, p and err posit8_1: kernel_ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {sdpa_bwd:.4f} (SDPA backward, whole, "
-        f"unrounded) bound_ms {b:.4f} ({by})")
+        f"unrounded) bound_ms {b:.4f} ({by}: seven products, di's q.k and "
+        f"dO.v recompute with the tap before the softmax Jacobian)")
     rows["flash_bwd_group"] = dict(
         name="flash_bwd_group", route="cuda",
         source="quantized_training_torch/csrc/flash_attn_bwd.cu",
@@ -1222,9 +1437,50 @@ def training_kernel_phases(torch, timer):
                  "(with :284, :348)",
         max_abs_err=max(max_err["di"], max_err["dq"], max_err["dkv"]),
         shape=f"B={B} H={H} S={S} D={D}, p and err posit8_1, kernels 2-4 "
-              f"together; library = SDPA backward, whole, unrounded",
+              f"together; bound = seven causal products (di's q.k and dO.v "
+              f"recompute under the tap); library = SDPA backward, whole, "
+              f"unrounded",
         ms=ms, plain_ms=plain_ms, library_ms=sdpa_bwd, bound_ms=b,
         bound_by=by)
+    # the bf16 arm's backward: di = rowsum(dO * o_unq) as flash_backward
+    # takes it without err_qfn, then kernels 3 and 4 without hooks; the
+    # function SDPA's backward computes, five causal products (o_unq read
+    # besides)
+    _, lse_n, o_unq_n = fa.attention_forward_plain(q, k, v, scale=scale)
+
+    def bwd_group_no_hooks(dq_fn, dkv_fn):
+        d = torch.sum(do.float() * o_unq_n.float(), dim=-1)
+        dq_fn(q, k, v, do, lse_n, d, scale=scale)
+        dkv_fn(q, k, v, do, lse_n, d, scale=scale)
+
+    group_n = lambda: bwd_group_no_hooks(fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    ms_n = timer(group_n, reps=7)
+    plain_n = timer(lambda: bwd_group_no_hooks(fa.flash_bwd_dq_plain,
+                                               fa.flash_bwd_dkv_plain),
+                    reps=3)
+    b, by = bound_ms(8 * tensor + row, causal_flops(B, H, S, D, 5))
+    log(f"  time flash backward without hooks (the bf16 arm's: di from "
+        f"o_unq, dq, dkv) B={B} H={H} S={S} D={D}: kernel_ms {ms_n:.4f} "
+        f"plain_ms {plain_n:.4f} library_ms {sdpa_bwd:.4f} (SDPA backward, "
+        f"whole) bound_ms {b:.4f} ({by})")
+    rows["flash_bwd_group_no_hooks"] = dict(
+        name="flash_bwd_group_no_hooks", route="cuda",
+        source="quantized_training_torch/csrc/flash_attn_bwd.cu",
+        replaces="quantized_training_tpu/ops/pallas/flash_attention.py:284 "
+                 "(with :348)",
+        max_abs_err=max(max_err["dq"], max_err["dkv"]),
+        shape=f"B={B} H={H} S={S} D={D}, no hooks: di = rowsum(dO * o_unq), "
+              f"kernels 3 and 4 (the bf16 arm's backward); library = SDPA "
+              f"backward, whole",
+        ms=ms_n, plain_ms=plain_n, library_ms=sdpa_bwd, bound_ms=b,
+        bound_by=by)
+    # the library's and the group's readings without the timer's spin: the
+    # events then also count the host's gaps between launches
+    log(f"  SDPA backward {sdpa_bwd:.4f} ms with the timer's spin, "
+        f"{sdpa_bwd_host:.4f} ms without; the tapped group {ms:.4f} and "
+        f"{timer(group, reps=7, spin=False):.4f}; the group without hooks "
+        f"{ms_n:.4f} and {timer(group_n, reps=7, spin=False):.4f}")
+    del lse_n, o_unq_n
     del q, k, v, do, lse, o_unq, di
 
     # ---- packed 8-bit Adam: bit for bit ------------------------------------
@@ -3094,8 +3350,8 @@ def train_phase(torch, qt):
     """train_bench.py's quantized arm at full width (8 layers, hidden 2048,
     batch 4 x 1024, posit8 fwd + err, Adam8bit(1e-4)) beside its bf16 arm
     (no qconfig, AdamW(1e-4)): ms/step, tokens/s, peak memory, a profile
-    of one quantized step, a falling loss on the repeated batch and the
-    launch counters of one quantized step."""
+    of one step of each arm, a falling loss on the repeated batch and the
+    launch counters of one step of each arm (returned: quantized, bf16)."""
     from quantized_training_torch.ops import launch_counts, \
         reset_launch_counts
     from quantized_training_torch.training import (Adam8bit, causal_lm_loss,
@@ -3150,10 +3406,11 @@ def train_phase(torch, qt):
                        "grad_nonzero": grad_nonzero_shares(torch, model)}
         log(f"    share of non-zero gradient entries in the last step: "
             f"{result[arm]['grad_nonzero']}")
-        if arm == "posit8":
-            prof = profile(torch, lambda: step(batch), ms, "step")
-            if prof:
-                result[arm]["profile"] = prof
+        # a profile of one step of each arm: kernels 2-4's share of it
+        prof = profile(torch, lambda: step(batch), ms, "step",
+                       watch=("flash_bwd",))
+        if prof:
+            result[arm]["profile"] = prof
         if not all(math.isfinite(x) for x in losses):
             fail(f"train {arm}: a loss is not finite: {losses}")
         if not losses[-1] < losses[0]:
@@ -3162,6 +3419,7 @@ def train_phase(torch, qt):
         if arm == "posit8":
             counts = arm_counts
         else:
+            counts_bf16 = arm_counts
             want = {"flash_attn_fwd": 8, "flash_attn_fwd_lse": 8,
                     "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
             if any(arm_counts[k] != n for k, n in want.items()):
@@ -3176,7 +3434,7 @@ def train_phase(torch, qt):
             "adam8bit_packed": 58}
     if any(counts[k] != n for k, n in want.items()):
         fail(f"one quantized train step launched {counts}, expected {want}")
-    return counts
+    return counts, counts_bf16
 
 
 # run_quantized_training.py's bert_base row (HYPERPARAMETERS :49-55,
@@ -3873,13 +4131,17 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
     log(f"  build wall {time.perf_counter() - t0:.1f} s")
-    # kernel 1 computes both of its products on the tensor cores
-    n_mma = {op: len(re.findall(rf"\b{op}\.", _cuda.sass("flash_attn_fwd")))
-             for op in ("HGMMA", "HMMA")}
-    log(f"  flash_attn_fwd SASS: {n_mma['HGMMA']} HGMMA and {n_mma['HMMA']} "
-        f"HMMA instructions")
-    if not any(n_mma.values()):
-        fail("flash_attn_fwd has no tensor-core instruction")
+    # kernels 1-4 compute their products on the tensor cores: every kernel
+    # function of the two flash libraries holds wgmma (HGMMA) instructions
+    for lib in ("flash_attn_fwd", "flash_attn_bwd"):
+        for part in _cuda.sass(lib).split("Function : ")[1:]:
+            fn = part.split("\n", 1)[0].strip()
+            n_mma = {op: len(re.findall(rf"\b{op}\.", part))
+                     for op in ("HGMMA", "HMMA")}
+            log(f"  {lib} SASS, {fn[:70]}: {n_mma['HGMMA']} HGMMA and "
+                f"{n_mma['HMMA']} HMMA instructions")
+            if not n_mma["HGMMA"]:
+                fail(f"{lib}: {fn} has no wgmma instruction")
 
     timer = Timer(torch)
     rows = kernel_phases(torch, timer)
@@ -3905,7 +4167,7 @@ def main():
     ladder = ladder_phase(torch, qt)
     train_parity_phase(torch, qt)
     train_witness_phase(torch, qt)
-    train = train_phase(torch, qt)
+    train, train_bf16 = train_phase(torch, qt)
     bert_parity_phase(torch, qt)
     bert = bert_phase(torch, qt)
     ptq_parity_phase(torch, qt)
@@ -3966,6 +4228,9 @@ def main():
         if key == "flash_bwd_group":
             row["launches"] = sum(train[k] for k in (
                 "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"))
+        elif key == "flash_bwd_group_no_hooks":
+            row["launches"] = sum(train_bf16[k] for k in (
+                "flash_bwd_dq", "flash_bwd_dkv"))
         else:
             row["launches"] = path.get(key, ladder)[counter.get(key, key)]
     log("kernel 1's times before its redesign, constants, not measured in "

@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "qt_round.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -67,7 +68,6 @@ constexpr int BQ = 128;             // query rows per block (two warpgroups)
 constexpr int BK = 64;              // keys per tile
 constexpr int NSTAGE = 3;           // K/V ring depth
 constexpr int NTHREADS = 256;
-constexpr int ROW_BYTES = 128;      // one swizzled row: 64 bf16
 constexpr float NEG_INF = -1073741824.0f;  // -2^30
 
 template <int D>
@@ -80,192 +80,8 @@ struct Layout {
   static_assert(SMEM_BYTES <= 232448, "over the H100's shared memory");
 };
 
-__device__ __forceinline__ float round_bf16(float v) {
-  uint32_t u = __float_as_uint(v);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return v;
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// two values rounded to bf16 (nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---- asynchronous copies ----------------------------------------------------
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows r0..r0+ROWS-1 of a (len, D) bf16 matrix into a swizzled tile at
-// shared address dst: D/64 column blocks of ROWS rows of 128 bytes, chunk c
-// of row r at (c ^ (r % 8)) * 16.  Rows at or past len are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const uint16_t* src,
-                                          int r0, int len, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  static_assert(ROWS * CH % NTHREADS == 0, "tile not a whole number of rounds");
-#pragma unroll
-  for (int i = 0; i < ROWS * CH / NTHREADS; ++i) {
-    const int c = tid + i * NTHREADS;
-    const int r = c / CH, cc = c % CH;
-    const bool ok = r0 + r < len;
-    const uint16_t* s = src + static_cast<size_t>(ok ? r0 + r : 0) * D + cc * 8;
-    cp_async16(dst + (cc >> 3) * (ROWS * ROW_BYTES) + r * ROW_BYTES +
-                   (((cc & 7) ^ (r & 7)) << 4),
-               s, ok);
-  }
-}
-
-// ---- warpgroup matrix multiply ----------------------------------------------
-// Shared-memory matrix descriptor, 128-byte swizzle; lbo and sbo in 16-byte
-// units.  K-major (Q, K): sbo = 8 rows = 1024 bytes, lbo unused.  MN-major
-// (V): sbo = 8 keys = 1024 bytes, lbo = the next 64-column block.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) |
-         (static_cast<uint64_t>(lbo) << 16) |
-         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of wgmma's registers across it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (+)= A(desc, K-major) * B(desc, K-major), m64n64k16, bf16 in, f32 sums
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A(registers) * B(desc, MN-major), m64n64k16, bf16 in, f32 sums
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d += A(registers) * B(desc, MN-major), m64n128k16, bf16 in, f32 sums
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The fragments below are wgmma's accumulator layout for a warpgroup's 64
-// rows: element i of a thread sits at row 16 * warp + lane / 4 + 8 * ((i / 2)
-// % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.  Elements i with
-// (i / 2) % 2 == 0 belong to the thread's row "a", the others to row "b" =
-// a + 8.  The A operand of m64nNk16 has the same layout over its 16
-// columns, so the score tile's elements 8kk..8kk+7 are, packed in pairs,
-// the A registers of key step kk.
+// Fragments: wgmma_tile.cuh's accumulator layout.
 constexpr int NS = BK / 8 * 4;      // score elements per thread
-
-__device__ __forceinline__ bool row_b(int i) { return (i >> 1) & 1; }
 
 // s = Q K^T for the warpgroup's rows over the key tile at k_st (unscaled).
 // The tensor cores' f32 sums truncate as they accumulate, so a chain of
@@ -281,14 +97,9 @@ template <int D, bool CHUNKED>
 __device__ __forceinline__ void scores(float (&s)[NS], uint32_t q_s,
                                        uint32_t k_st, int wg) {
   auto desc_q = [&](int kk) {
-    return smem_desc(q_s + (kk >> 2) * (BQ * ROW_BYTES) +
-                         wg * (64 * ROW_BYTES) + (kk & 3) * 32,
-                     1, 64);
+    return kmajor_desc<BQ>(q_s + wg * (64 * ROW_BYTES), kk);
   };
-  auto desc_k = [&](int kk) {
-    return smem_desc(k_st + (kk >> 2) * (BK * ROW_BYTES) + (kk & 3) * 32, 1,
-                     64);
-  };
+  auto desc_k = [&](int kk) { return kmajor_desc<BK>(k_st, kk); };
   if constexpr (!CHUNKED) {
     wg_fence();
 #pragma unroll
@@ -316,32 +127,6 @@ __device__ __forceinline__ void scores(float (&s)[NS], uint32_t q_s,
 
 // The A operand of P @ V: p (exact bf16 values) packed in pairs
 using PFrag = uint32_t[BK / 16][4];
-
-__device__ __forceinline__ void pack_p(PFrag& a, const float (&p)[NS]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      a[kk][t] = pack_bf16(p[8 * kk + 2 * t], p[8 * kk + 2 * t + 1]);
-}
-
-// wgmma reads its A registers until the wait: keep them live to here
-__device__ __forceinline__ void fence_regs(PFrag& a) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) asm volatile("" : "+r"(a[kk][t])::"memory");
-}
-
-// o += P @ V for the V tile at v_st (issued, not waited for)
-template <int NO>
-__device__ __forceinline__ void pv_issue(float (&o)[NO], const PFrag& a,
-                                         uint32_t v_st) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs(o, a[kk], smem_desc(v_st + kk * 16 * ROW_BYTES,
-                                 (BK * ROW_BYTES) >> 4, 64));
-}
 
 // Where a thread's fragment elements sit: column col0 + ... of a tile,
 // rows at absolute positions qpos_a and qpos_a + 8
@@ -405,22 +190,6 @@ __device__ __forceinline__ void exp_lse(float (&s)[NS], float scale,
                                            row_b(i) ? lse_b : lse_a)));
 }
 
-// An output fragment rounded to bf16 into rows row_a.. (and row_a + 8..)
-// of a (S, D) matrix; rows at or past S are not stored.
-template <int NO>
-__device__ __forceinline__ void store_rows(uint16_t* dst, const float (&f)[NO],
-                                           int row_a, int S, int col0) {
-  constexpr int D = NO * 2;
-#pragma unroll
-  for (int i = 0; i < NO; i += 2) {
-    const int row = row_a + 8 * row_b(i);
-    if (row < S)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row) * D +
-                                   8 * (i >> 2) + col0) =
-          pack_bf16(f[i], f[i + 1]);
-  }
-}
-
 template <int D, bool TWO_PASS, bool SAVE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
@@ -463,8 +232,9 @@ flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   auto stage = [&](int j) { return kv_s + (j % NSTAGE) * L::STAGE_BYTES; };
   auto issue = [&](int j, bool with_v) {
     if (j < n_tiles) {
-      load_tile<D, BK>(stage(j), kp, j * BK, T, tid);
-      if (with_v) load_tile<D, BK>(stage(j) + L::KV_BYTES, vp, j * BK, T, tid);
+      load_tile<D, BK, NTHREADS>(stage(j), kp, j * BK, T, tid);
+      if (with_v)
+        load_tile<D, BK, NTHREADS>(stage(j) + L::KV_BYTES, vp, j * BK, T, tid);
     }
     cp_async_commit();
   };
@@ -485,7 +255,7 @@ flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   for (int i = 0; i < NO; ++i) o_acc[i] = 0.f;
   float s[NS];
 
-  load_tile<D, BQ>(q_s, qp, q0, S, tid);  // in the first copy group
+  load_tile<D, BQ, NTHREADS>(q_s, qp, q0, S, tid);  // in the first copy group
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
 
   if constexpr (!TWO_PASS) {
@@ -511,11 +281,11 @@ flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NO; ++i) o_acc[i] *= row_b(i) ? alpha_b : alpha_a;
       PFrag a;
-      pack_p(a, s);  // p rounded to bf16 as the P @ V operand
+      pack_frag(a, s);  // p rounded to bf16 as the P @ V operand
       fence_regs(a);
       fence_regs(o_acc);
       wg_fence();
-      pv_issue(o_acc, a, stage(j) + L::KV_BYTES);
+      wgmma_rs_tile<BK>(o_acc, a, stage(j) + L::KV_BYTES);
       wg_commit_wait();
       fence_regs(a);
       fence_regs(o_acc);
@@ -582,9 +352,9 @@ flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       if (edge(k0)) exp_lse<true>(s, scale, m_a, m_b, pos, k0);
       else exp_lse<false>(s, scale, m_a, m_b, pos, k0);
       PFrag a, a2;
-      if constexpr (SAVE) pack_p(a2, s);
+      if constexpr (SAVE) pack_frag(a2, s);
       qt_round_all<true>(s, p_fmt);
-      pack_p(a, s);
+      pack_frag(a, s);
       fence_regs(a);
       fence_regs(o_acc);
       if constexpr (SAVE) {
@@ -592,8 +362,8 @@ flash_fwd(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         fence_regs(o2);
       }
       wg_fence();
-      pv_issue(o_acc, a, stage(j) + L::KV_BYTES);
-      if constexpr (SAVE) pv_issue(o2, a2, stage(j) + L::KV_BYTES);
+      wgmma_rs_tile<BK>(o_acc, a, stage(j) + L::KV_BYTES);
+      if constexpr (SAVE) wgmma_rs_tile<BK>(o2, a2, stage(j) + L::KV_BYTES);
       wg_commit_wait();
       fence_regs(a);
       fence_regs(o_acc);

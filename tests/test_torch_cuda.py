@@ -526,3 +526,120 @@ def test_flash_forward_refuses_other_head_dims(cuda_device):
         fa.flash_attention(q, q, q)
     assert (fa.flash_attention.launches,
             fa.flash_attention.two_pass_launches) == before
+
+
+# The backward kernels' bounds are chip_smoke.py's (atol, rtol), from shared
+# inputs (the plain lse, o_unq and di feed both sides): di sums p * err(dp)
+# in another order; dq and dk_h are bf16 outputs of f32 sums in other
+# orders; dv_h's operand is round(bf16(p)), where a p at a format boundary
+# may land one step away, and without a p format bf16(p) against the plain
+# version's f32 p.  Under the error tap a dp at a bf16 rounding midpoint
+# lands a posit step away wherever a dot's last f32 bit differs, and the
+# plain version's f32 GEMM sums differ from the exact dot there: so the
+# bounds are held against a float64 reference at the kernels' rounding
+# points (_exact_bwd, chip_smoke.py's exact_bwd), and the plain version is
+# a floor reading (every output within the floor atol, at most the floor
+# share outside the bound).
+_BWD_TOL = {"di": (2e-5, 1e-4), "dq": (2e-3, 2e-2), "dk": (2e-3, 2e-2),
+            "dv": (1.5e-2, 2e-2)}
+_BWD_FLOOR = {"di": (5e-2, 2e-3), "dq": (3e-2, 5e-5), "dk": (3e-2, 5e-5),
+              "dv": (3e-2, 1e-5)}
+
+
+def _exact_bwd(q, k, v, do, lse, di, scale, q_offset, p_qfn, err_qfn):
+    """(di, dq, dk_h, dv_h) at the kernels' rounding points with exact
+    (float64) dots, each rounded once to f32, and float64 products
+    (chip_smoke.py's exact_bwd)."""
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    H, S, T = q.shape[1], q.shape[2], k.shape[2]
+    k, v = (t.repeat_interleave(H // t.shape[1], 1) for t in (k, v))
+    s = torch.matmul(q.to(f64), k.to(f64).transpose(-1, -2)).to(f32)
+    seen = (torch.arange(T, device=q.device)[None, :]
+            <= torch.arange(S, device=q.device)[:, None] + q_offset)
+    p = torch.where(seen, torch.exp(s * scale - lse[..., None]),
+                    torch.zeros((), dtype=f32, device=q.device))
+    dp = torch.matmul(do.to(f64), v.to(f64).transpose(-1, -2)).to(f32)
+    dp = err_qfn.plain(dp.to(bf16)).to(f32)
+    di_x = torch.sum(p.to(f64) * dp.to(f64), dim=-1).to(f32)
+    ds = (p * (dp - di[..., None]) * scale).to(bf16).to(f64)
+    pv = p.to(bf16) if p_qfn is None else p_qfn.plain(p.to(bf16))
+    return (di_x, torch.matmul(ds, k.to(f64)).to(bf16),
+            torch.matmul(ds.transpose(-1, -2), q.to(f64)).to(bf16),
+            torch.matmul(pv.to(f64).transpose(-1, -2), do.to(f64)).to(bf16))
+
+
+def _outside(got, want, atol, rtol):
+    """(max |got - want|, outputs outside atol + rtol|want|, NaN counted)."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    return float(err.max()), int((~(err <= atol + rtol * w.abs())).sum())
+
+
+@pytest.mark.parametrize("form", ["no_hooks", "err", "p_err"])
+@pytest.mark.parametrize("KV", [8, 2], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,q_offset", _FWD_SHAPES,
+                         ids=["ragged", "offset"])
+def test_flash_backward_forms_match_plain(cuda_device, form, KV, D, S, T,
+                                          q_offset):
+    """Kernels 2-4 in every form they serve (no hooks; err_qfn; p_qfn with
+    err_qfn), at D 64 and 128, GQA groups 1 and 4, a ragged S and a
+    q_offset with T > S: each launches, holds its bound (against the exact
+    reference under the error tap, with the plain version a floor reading)
+    and repeats bit for bit."""
+    from quantized_training_torch.numerics import quantize_fn_unit
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    B, H = 2, 8
+    q, do = _rnd(gen, B, H, S, D), _rnd(gen, B, H, S, D)
+    k, v = _rnd(gen, B, KV, T, D), _rnd(gen, B, KV, T, D)
+    scale = D ** -0.5
+    p_qfn = quantize_fn_unit("posit8_1") if form == "p_err" else None
+    err_qfn = None if form == "no_hooks" else quantize_fn("posit8_1")
+    _, lse, o_unq = fa.attention_forward_plain(q, k, v, scale=scale,
+                                               q_offset=q_offset, p_qfn=p_qfn)
+    kw = dict(scale=scale, q_offset=q_offset, err_qfn=err_qfn)
+    if err_qfn is None:
+        di_p = torch.sum(do.float() * o_unq.float(), dim=-1)
+    else:
+        di_p = fa.flash_bwd_di_plain(q, k, v, do, lse, **kw)
+    counters = (fa.flash_bwd_di, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [fn.launches for fn in counters]
+    runs = []
+    for _ in range(2):
+        di = fa.flash_bwd_di(q, k, v, do, lse, **kw) if err_qfn else None
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, di_p, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di_p, p_qfn=p_qfn, **kw)
+        runs.append({"di": di, "dq": dq, "dk": dk, "dv": dv})
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        2 if err_qfn else 0, 2, 2]
+    plain = {"di": di_p, "dq": fa.flash_bwd_dq_plain(q, k, v, do, lse, di_p,
+                                                     **kw)}
+    plain["dk"], plain["dv"] = fa.flash_bwd_dkv_plain(q, k, v, do, lse, di_p,
+                                                      p_qfn=p_qfn, **kw)
+    exact = None if err_qfn is None else dict(zip(
+        ("di", "dq", "dk", "dv"),
+        _exact_bwd(q, k, v, do, lse, di_p, scale, q_offset, p_qfn, err_qfn)))
+    bad = []
+    for name, got in runs[0].items():
+        if got is None:
+            continue
+        atol, rtol = _BWD_TOL[name]
+        if exact is None:
+            err, out = _outside(got, plain[name], atol, rtol)
+            if out:
+                bad.append(f"{name}: {err:.3g}, {out} outside the bound")
+        else:
+            err, out = _outside(got, exact[name], atol, rtol)
+            if out:
+                bad.append(f"{name}: {err:.3g} from the exact reference, "
+                           f"{out} outside the bound")
+            floor_atol, cap = _BWD_FLOOR[name]
+            err, far = _outside(got, plain[name], floor_atol, rtol)
+            _, out = _outside(got, plain[name], atol, rtol)
+            if far or out > cap * got.numel():
+                bad.append(f"{name}: {err:.3g} from the plain version, "
+                           f"{out} outside the bound")
+        if not torch.equal(got, runs[1][name]):
+            bad.append(f"{name} did not repeat")
+    assert not bad, bad

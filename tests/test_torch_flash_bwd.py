@@ -23,18 +23,19 @@ from quantized_training_torch.ops import flash_attention as fa
 D = 128
 
 
-def _inputs(S, T, H, KV, seed):
+def _inputs(S, T, H, KV, seed, d=D):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((1, H, S, D)).astype(np.float32)
-    k = rng.standard_normal((1, KV, T, D)).astype(np.float32)
-    v = rng.standard_normal((1, KV, T, D)).astype(np.float32)
-    w = rng.standard_normal((1, H, S, D)).astype(np.float32)
+    q = rng.standard_normal((1, H, S, d)).astype(np.float32)
+    k = rng.standard_normal((1, KV, T, d)).astype(np.float32)
+    v = rng.standard_normal((1, KV, T, d)).astype(np.float32)
+    w = rng.standard_normal((1, H, S, d)).astype(np.float32)
     return q, k, v, w
 
 
-def _grads(S, T, H, KV, dtype, hooks, causal=True, seed=0):
-    """(JAX grads, port grads) of sum(o * w) for q, k, v as f32 numpy."""
-    q, k, v, w = _inputs(S, T, H, KV, seed)
+def _grads(S, T, H, KV, dtype, hooks, causal=True, seed=0, d=D):
+    """(JAX grads, port grads) of sum(o * w) for q, k, v as f32 numpy, at
+    head dim d."""
+    q, k, v, w = _inputs(S, T, H, KV, seed, d)
     jd, td = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
               else (jnp.float32, torch.float32))
     jk = {name: jax_qfn(fmt) for name, fmt in hooks.items()}
@@ -93,13 +94,19 @@ CASES = {
                                             2e-2),
     "GQA H=4 KV=2, err_qfn posit8_1": (128, 128, 4, 2, "bf16",
                                        {"err_qfn": "posit8_1"}, True, None),
+    # the kernels' D=64 GQA form (group 4)
+    "GQA H=8 KV=2 D=64, err_qfn posit8_1": (128, 128, 8, 2, "bf16",
+                                            {"err_qfn": "posit8_1"}, True,
+                                            None),
 }
+HEAD_DIM = {"GQA H=8 KV=2 D=64, err_qfn posit8_1": 64}   # else D
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_grads_match_jax_flash(case):
     S, T, H, KV, dtype, hooks, causal, tol = CASES[case]
-    want, got = _grads(S, T, H, KV, dtype, hooks, causal)
+    want, got = _grads(S, T, H, KV, dtype, hooks, causal,
+                       d=HEAD_DIM.get(case, D))
     for name, a, b in zip("qkv", want, got):
         assert a.shape == b.shape, (name, a.shape, b.shape)
         if tol is not None:
