@@ -128,6 +128,22 @@ the tapped group's bound, and the timer spins the device before each start
 event so that every time is the device's (SDPA's backward and the groups
 are also printed without the spin); phase 8 profiles both arms.
 
+Slice 10 redesigns kernel 5 at M > 8 (the w4/w2 storage GEMM at prefill)
+for the tensor cores: phase 1 requires wgmma in its w4_gemm_tc functions;
+phase 2/3 adds ragged cases (M 9 and 130, N 32064, K 17920, w2 at M=512,
+groups 32 and 128, codes and qparams 4 bytes past 16-byte alignment),
+the identity's rows bit-equal to the dequantized
+weight (k 0..63 and the last group; w4 and w2, groups 64 and 128,
+N=32064), a repeat check at M=2048 and M=512, two planted faults of the
+tiled path (a 64-deep K step skipped, a group scaled by the next group's
+sf), rows at M=512 and Phi-3's gate/up, and ``fallback_ms`` beside each
+prefill row (kernel 6's dequant, x permuted, a bf16 matmul: the
+reference's own fallback); the serving phases count the M > 8 launches
+(``affine_w4_matmul_prefill``: 5L+1 a prefill, none a decode step) and
+profile one prefill of a longest prompt (the storage GEMM's and the flash
+forward's device time); the w2 prefill row counts the M > 8 launches of
+the w2a16 format's 8-slot prefill.
+
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -170,6 +186,18 @@ def bound_ms(nbytes, nops):
     t_ops = nops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def fallback(x, codes, sf, zp, nbits, group=64):
+    """The reference's own fallback for a storage GEMM
+    (ops/pallas/affine_storage.py:339-351): kernel 6's plane-major dequant,
+    x permuted to match, one bf16 torch.matmul.  A yardstick for kernel 5;
+    the port never calls it."""
+    import torch
+    from quantized_training_torch.ops import affine_storage as aff
+    per = 32 // nbits
+    return torch.matmul(aff._plane_major_x(x, codes.shape[0], per),
+                        aff.dequant_planes(codes, sf, zp, nbits, group))
 
 
 class Timer:
@@ -304,7 +332,9 @@ def kernel_phases(torch, timer):
     # ---- w4 storage GEMM -----------------------------------------------
     # The kernel and the plain version multiply the same bf16 weights: f32
     # sums in another order and one bf16 rounding of the output (2^-8
-    # relative) differ.  On the H100 no case needed an atol above 1.4e-6.
+    # relative) differ.  M > 8 runs on the tensor cores, whose chained f32
+    # sums truncate, so it is no longer bit-equal to the plain version; a
+    # breach of this bound is far beyond any order of summation at these K.
     atol, rtol = 1e-4, 1e-2
     log(f"phase 2/3: affine_w4_matmul (tolerance {atol} + {rtol}*|plain|)")
     packs = {}
@@ -343,24 +373,132 @@ def kernel_phases(torch, timer):
                                                   group_size=64),
                           atol, rtol, failures)
 
-    # the prefill row's shape: the weight is the cached (4096, 12288) one
-    # and x comes from a generator of its own, so that every later check
-    # keeps its inputs
+    # The tensor-core path (M > 8) from here on: every input from a
+    # generator of its own, so that every later check keeps its inputs.
+    g5 = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def own(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g5, device=dev) * scale).to(dtype)
+
+    def own_pack(K, N, nbits=4, group=64):
+        return aff.pack_affine_weights(own(K, N, scale=K ** -0.5), nbits,
+                                       group)
+
+    # the prefill row's shape, on the cached (4096, 12288) weight
     codes, sf, zp = packed(4096, 12288)
     x = torch.randn((2048, 4096), generator=torch.Generator(
         device=dev).manual_seed(SEED), device=dev).to(bf16)
+    got = aff.affine_matmul(x, codes, sf, zp, nbits=4, group_size=64)
     ok, err = check_close(
-        "M=2048 K=4096 N=12288", aff.affine_matmul(x, codes, sf, zp, nbits=4,
-                                                   group_size=64),
+        "M=2048 K=4096 N=12288", got,
         aff.affine_matmul_plain(x, codes, sf, zp, nbits=4, group_size=64),
         atol, rtol)
     max_err = max(max_err, err)
     if not ok:
         failures.append("affine_w4_matmul M=2048 K=4096 N=12288")
+    # the same call twice gives the same bits (no split K, no atomics)
+    n_bad, where = bit_mismatches(
+        aff.affine_matmul(x, codes, sf, zp, nbits=4, group_size=64), got)
+    log(f"  repeat M=2048 K=4096 N=12288: lanes that differ {n_bad} {where}")
+    if n_bad:
+        failures.append("affine_w4_matmul repeat M=2048")
 
-    def affine_row(M, K, N):
-        codes, sf, zp = packed(K, N)
-        x = randn(M, K, dtype=bf16)
+    # ragged M, N and K, both word widths, groups 32 and 128
+    for nbits, group, M, K, N in [
+            (4, 64, 9, 4096, 4096), (4, 64, 130, 4096, 12288),
+            (4, 64, 512, 5120, 32064), (4, 64, 512, 17920, 5120),
+            (4, 32, 512, 4096, 4096), (4, 128, 512, 4096, 4096),
+            (2, 64, 512, 5120, 32064), (2, 128, 130, 4096, 4096)]:
+        p = own_pack(K, N, nbits, group)
+        x = own(M, K, dtype=bf16)
+        got = aff.affine_matmul(x, *p, nbits=nbits, group_size=group)
+        want = aff.affine_matmul_plain(x, *p, nbits=nbits, group_size=group)
+        torch.cuda.synchronize()
+        name = f"nbits={nbits} group={group} M={M} K={K} N={N}"
+        ok, err = check_close(name, got, want, atol, rtol)
+        max_err = max(max_err, err)
+        if not ok:
+            failures.append(f"affine_w4_matmul {name}")
+        if (nbits, M) == (4, 512) and N == 4096 and group == 32:
+            n_bad, where = bit_mismatches(
+                aff.affine_matmul(x, *p, nbits=nbits, group_size=group), got)
+            log(f"  repeat {name}: lanes that differ {n_bad} {where}")
+            if n_bad:
+                failures.append(f"affine_w4_matmul repeat {name}")
+
+    # codes, sf and zp 4 bytes past 16-byte alignment (contiguous views
+    # into a larger buffer), at N % 4 == 0: both paths read them whole
+    g6 = torch.Generator(device=dev).manual_seed(SEED + 6)
+    K, N = 4096, 4096
+    w = torch.randn((K, N), generator=g6, device=dev) * K ** -0.5
+    p = []
+    for t in aff.pack_affine_weights(w, 4, 64):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        p.append(buf[1:].view(t.shape).copy_(t))
+    for M in (8, 130):
+        x = torch.randn((M, K), generator=g6, device=dev).to(bf16)
+        got = aff.affine_matmul(x, *p, nbits=4, group_size=64)
+        want = aff.affine_matmul_plain(x, *p, nbits=4, group_size=64)
+        torch.cuda.synchronize()
+        name = f"M={M} K={K} N={N}, codes and qparams at a 4-byte offset"
+        ok, err = check_close(name, got, want, atol, rtol)
+        max_err = max(max_err, err)
+        if not ok:
+            failures.append(f"affine_w4_matmul {name}")
+
+    # the dequant in registers, bit for bit: rows of the identity pick
+    # k = 0..63 and the last group's rows, and y is those rows of the
+    # dequantized weight rounded to bf16 (one product 1 * w a sum)
+    for nbits, group in [(4, 64), (4, 128), (2, 64), (2, 128)]:
+        K, N = 5120, 32064
+        p = own_pack(K, N, nbits, group)
+        rows_k = list(range(64)) + list(range(K - group, K))
+        eye = torch.zeros((len(rows_k), K), dtype=bf16, device=dev)
+        eye[torch.arange(len(rows_k)), torch.tensor(rows_k)] = 1
+        got = aff.affine_matmul(eye, *p, nbits=nbits, group_size=group)
+        want = aff._dequant_planes(*p, nbits, group).to(bf16)[rows_k]
+        torch.cuda.synchronize()
+        n_bad, where = bit_mismatches(got, want)
+        log(f"  identity nbits={nbits} group={group} K={K} N={N} "
+            f"M={len(rows_k)}: lanes that differ {n_bad} {where}")
+        if n_bad:
+            failures.append(f"affine_w4_matmul identity nbits={nbits} "
+                            f"group={group}")
+
+    # planted faults of the tiled path: one 64-deep K step skipped, one
+    # group scaled by the next group's sf
+    codes, sf, zp = p = own_pack(11008, 4096)
+    x = own(512, 11008, dtype=bf16)
+    got = aff.affine_matmul(x, *p, nbits=4, group_size=64)
+    ok, err = check_close("M=512 K=11008 N=4096", got,
+                          aff.affine_matmul_plain(x, *p, nbits=4,
+                                                  group_size=64), atol, rtol)
+    max_err = max(max_err, err)
+    if not ok:
+        failures.append("affine_w4_matmul M=512 K=11008 N=4096")
+    x_f = x.clone()
+    x_f[:, 64 * 100:64 * 101] = 0
+    planted_fault("M=512, K step 100 skipped", got,
+                  aff.affine_matmul_plain(x_f, *p, nbits=4, group_size=64),
+                  atol, rtol, failures)
+    sf_f = sf.clone()
+    sf_f[100] = sf[101]
+    planted_fault("M=512, group 100 scaled by group 101's sf", got,
+                  aff.affine_matmul_plain(x, codes, sf_f, zp, nbits=4,
+                                          group_size=64),
+                  atol, rtol, failures)
+    x = own(512, 4096, dtype=bf16)
+    p = packed(4096, 12288)
+    got = aff.affine_matmul(x, *p, nbits=4, group_size=64)
+    n_bad, where = bit_mismatches(
+        aff.affine_matmul(x, *p, nbits=4, group_size=64), got)
+    log(f"  repeat M=512 K=4096 N=12288: lanes that differ {n_bad} {where}")
+    if n_bad:
+        failures.append("affine_w4_matmul repeat M=512")
+
+    def affine_row(M, K, N, p=None, gen_x=randn):
+        codes, sf, zp = p or packed(K, N)
+        x = gen_x(M, K, dtype=bf16)
         w_bf16 = aff._dequant_planes(codes, sf, zp, 4, 64).to(bf16)
         ms = timer(lambda: aff.affine_matmul(x, codes, sf, zp, nbits=4,
                                              group_size=64))
@@ -369,36 +507,50 @@ def kernel_phases(torch, timer):
         lib = timer(lambda: torch.matmul(x, w_bf16))
         nbytes = K * N // 2 + 2 * (K // 64) * N * 4 + M * K * 2 + M * N * 2
         b, by = bound_ms(nbytes, 2 * M * K * N)
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                   bound_by=by)
+        extra = ""
+        if M > 8:
+            row["fallback_ms"] = timer(lambda: fallback(x, codes, sf, zp, 4))
+            extra = f" fallback_ms {row['fallback_ms']:.4f}"
         log(f"  time M={M} K={K} N={N}: kernel_ms {ms:.4f} plain_ms "
-            f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} ({by})")
-        return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                    bound_by=by)
+            f"{plain:.4f} library_ms {lib:.4f}{extra} bound_ms {b:.4f} "
+            f"({by})")
+        return row
 
     for M, K, N in [(8, 4096, 4096), (8, 4096, 11008), (8, 11008, 4096),
                     (8, 4096, 32000), (2048, 11008, 4096), (8, 17920, 5120),
                     (8, 5120, 32064)]:
         affine_row(M, K, N)
-    # the w4 GEMM at prefill: the next redesign is ordered from this row
+    w4 = dict(route="cuda",
+              source="quantized_training_torch/csrc/affine_w4_matmul.cu",
+              replaces="quantized_training_tpu/ops/pallas/affine_storage.py:255",
+              max_abs_err=max_err)
+    prefill = ("library = bf16 torch.matmul on the dequantized weight; "
+               "fallback = the reference's fallback, kernel 6's plane-major "
+               "dequant, x permuted to match, bf16 torch.matmul; launches = "
+               "M > 8 launches of the serving run")
     rows["affine_w4_matmul_prefill"] = dict(
-        name="affine_w4_matmul_prefill", route="cuda",
-        source="quantized_training_torch/csrc/affine_w4_matmul.cu",
-        replaces="quantized_training_tpu/ops/pallas/affine_storage.py:255",
-        max_abs_err=max_err, shape="prefill qkv M=2048 K=4096 N=12288 (7B), "
-        "library = bf16 torch.matmul on the dequantized weight; launches = "
-        "every w4 GEMM launch of the flagship run, decode and prefill",
+        name="affine_w4_matmul_prefill", **w4,
+        shape="prefill qkv M=2048 K=4096 N=12288 (7B); " + prefill,
         **affine_row(2048, 4096, 12288))
+    rows["affine_w4_matmul_prefill_512"] = dict(
+        name="affine_w4_matmul_prefill_512", **w4,
+        shape="prefill qkv M=512 K=4096 N=12288 (7B, the smallest bucket); "
+        + prefill, **affine_row(512, 4096, 12288, gen_x=own))
+    rows["affine_w4_matmul_prefill_phi3"] = dict(
+        name="affine_w4_matmul_prefill_phi3", **w4,
+        shape="prefill gate/up M=2048 K=5120 N=17920 (Phi-3-medium); "
+        + prefill, **affine_row(2048, 5120, 17920, own_pack(5120, 17920),
+                                own))
     rows["affine_w4_matmul"] = dict(
-        name="affine_w4_matmul", route="cuda",
-        source="quantized_training_torch/csrc/affine_w4_matmul.cu",
-        replaces="quantized_training_tpu/ops/pallas/affine_storage.py:255",
-        max_abs_err=max_err, shape="decode qkv M=8 K=4096 N=12288",
+        name="affine_w4_matmul", **w4, shape="decode qkv M=8 K=4096 "
+        "N=12288; launches = M <= 8 launches of the serving run",
         **affine_row(8, 4096, 12288))
     rows["affine_w4_matmul_phi3"] = dict(
-        name="affine_w4_matmul_phi3", route="cuda",
-        source="quantized_training_torch/csrc/affine_w4_matmul.cu",
-        replaces="quantized_training_tpu/ops/pallas/affine_storage.py:255",
-        max_abs_err=max_err, shape="decode qkv M=8 K=5120 N=7680 "
-        "(Phi-3-medium)", **affine_row(8, 5120, 7680))
+        name="affine_w4_matmul_phi3", **w4, shape="decode qkv M=8 K=5120 "
+        "N=7680 (Phi-3-medium); launches = M <= 8 launches",
+        **affine_row(8, 5120, 7680))
     packs.clear()
 
     # ---- flash prefill ---------------------------------------------------
@@ -2123,17 +2275,32 @@ def storage_kernel_phases(torch, timer):
             lib = timer(lambda: torch.matmul(x, w))
             b, by = bound_ms(wbytes(K, N) + M * K * 2 + M * N * 2,
                              2 * M * K * N)
+            r = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                     bound_by=by)
+            extra = ""
+            if name == "affine_w2_matmul" and M > 8:
+                r["fallback_ms"] = timer(lambda: fallback(x, *p, 2))
+                extra = f" fallback_ms {r['fallback_ms']:.4f}"
             log(f"  time M={M} K={K} N={N}: kernel_ms {ms:.4f} plain_ms "
                 f"{plain:.4f} library_ms {lib:.4f} (bf16 matmul on the "
-                f"dequantized weight) bound_ms {b:.4f} ({by})")
-            return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                        bound_by=by)
+                f"dequantized weight){extra} bound_ms {b:.4f} ({by})")
+            return r
 
         main = (8, 5120, 15360) if name == "affine_w2_matmul" \
             else (8, 4096, 12288)
-        for M, K, N in [(2048, 4096, 12288), (8, 13824, 5120),
-                        (2048, 13824, 5120)]:
+        for M, K, N in [(2048, 4096, 12288), (8, 13824, 5120)]:
             row(M, K, N)
+        prefill = row(2048, 13824, 5120)
+        if name == "affine_w2_matmul":
+            rows["affine_w2_matmul_prefill"] = dict(
+                name="affine_w2_matmul_prefill", route="cuda",
+                source=f"quantized_training_torch/{src}",
+                replaces=f"quantized_training_tpu/ops/pallas/{tpu}",
+                max_abs_err=max_err, shape="prefill down M=2048 K=13824 "
+                "N=5120 (13B); fallback = kernel 6, x permuted, bf16 "
+                "torch.matmul; launches = M > 8 launches of the w2a16 "
+                "format phase's 8-slot prefill (2 layers, 8 x 128 tokens)",
+                **prefill)
         rows[name] = dict(
             name=name, route="cuda",
             source=f"quantized_training_torch/{src}",
@@ -2726,8 +2893,10 @@ def format_phase(torch, qt, case, phase="4b", params=None):
     """One storage format at 2 layers: the card's kernel path against the
     plain path on the CPU (the same weights), the prefill logits and three
     decode steps from shared quantized state (both sides decode from the
-    plain path's cache and are fed its greedy token); then 6 decode steps of
-    8 slots on the card, timed, with the launch counters around them.
+    plain path's cache and are fed its greedy token); then a prefill of 8
+    slots and 6 decode steps on the card, the decode steps timed, with the
+    launch counters around each (returned: metrics, decode counts, prefill
+    counts).
 
     The bound is the JAX suite's 0.15 + 0.05*|plain| elementwise, except
     for w8a8: its dynamic per-token int8 quantizer inside every GEMM turns
@@ -2801,8 +2970,10 @@ def format_phase(torch, qt, case, phase="4b", params=None):
                          generator=torch.Generator().manual_seed(SEED)).cuda()
     fresh_peak(torch)
     with torch.no_grad():
+        reset_launch_counts()
         logits, caches = gpu(ids8, use_cache=True, prompt_len=S,
                              last_logit_only=True)
+        prefill_counts = launch_counts()
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times = []
         reset_launch_counts()
@@ -2828,7 +2999,8 @@ def format_phase(torch, qt, case, phase="4b", params=None):
         fail(f"{label}: decode logits finite {finite}, a kernel of its path "
              f"({kernels}) never launched: {counts}")
     return {"decode_ms_per_step": ms, "peak_gib": peak, "worst_err": worst,
-            "greedy_equal": tokens["kernel"] == tokens["plain"]}, counts
+            "greedy_equal": tokens["kernel"] == tokens["plain"]}, counts, \
+        prefill_counts
 
 
 def bench_config(qt, layers):
@@ -3972,8 +4144,9 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
     ``cache``: LLaMA-2 7B (32 layers, prompts 64-2048 tokens), or
     Phi-3-medium-4k (``geom`` "phi3": 40 layers, GQA 40/10, prompts
     64-1984 tokens, so that every request stays under its 2047-token
-    sliding window).  Prints ``<label> {...}`` and returns the launch
-    counters of the run and of one decode step."""
+    sliding window).  Then profiles one prefill of a longest prompt: the
+    storage GEMM's and the flash forward's device time in it.  Prints
+    ``<label> {...}`` and returns the launch counters of the run."""
     from quantized_training_torch.ops import launch_counts, \
         reset_launch_counts
     import numpy as np
@@ -4055,6 +4228,15 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
     serving = ("affine_w4_matmul", "flash_attn_fwd", decode_kernel)
     if any(launches[k] == 0 for k in serving):
         fail(f"a kernel of the serving path was never launched: {launches}")
+    # each prefill runs the tensor-core storage GEMM (M > 8) for qkv, o,
+    # gate, up and down in every layer and the lm_head
+    L = cfg.num_hidden_layers
+    n_pre = launches["affine_w4_matmul_prefill"]
+    log(f"  M > 8 storage GEMM launches: {n_pre} in {stats['prefills']} "
+        f"prefills ({5 * L + 1} a prefill expected)")
+    if n_pre != stats["prefills"] * (5 * L + 1):
+        fail(f"{n_pre} M > 8 storage GEMM launches in {stats['prefills']} "
+             f"prefills, expected {5 * L + 1} each")
 
     # What bounds a decode step: the host's time to enqueue one decode
     # forward (it has no host sync) against its time to completion.  When
@@ -4080,11 +4262,31 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
         f"{1e3 * sorted(enqueue)[3]:.2f} ms, completion "
         f"{1e3 * sorted(done)[3]:.2f} ms; launches {step_counts}")
     # one decode step: the fused decode once per layer; the storage GEMM
-    # for qkv, o, gate, up and down in every layer, and the lm_head
-    L = cfg.num_hidden_layers
-    want = {decode_kernel: L, "affine_w4_matmul": 5 * L + 1}
+    # for qkv, o, gate, up and down in every layer, and the lm_head, all
+    # at M <= 8
+    want = {decode_kernel: L, "affine_w4_matmul": 5 * L + 1,
+            "affine_w4_matmul_prefill": 0}
     if any(step_counts[k] != n for k, n in want.items()):
         fail(f"one decode step launched {step_counts}, expected {want}")
+
+    # where one prefill's device time goes: a longest prompt into slot 0,
+    # once to warm, once timed, once traced
+    long_ids = rng.integers(0, cfg.vocab_size, longest)
+    with torch.no_grad():
+        prefill_slot(0, long_ids)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill_slot(0, long_ids)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        prof = profile(torch, lambda: prefill_slot(0, long_ids), pre_ms,
+                       f"prefill of {longest} tokens",
+                       watch=("w4_gemm_tc", "flash_fwd"))
+    if prof is not None:
+        log(f"  prefill of {longest} tokens: storage GEMM (w4_gemm_tc) "
+            f"{prof['watched_ms']['w4_gemm_tc']:.3f} ms, flash forward "
+            f"{prof['watched_ms']['flash_fwd']:.3f} ms of "
+            f"{prof['busy_ms']:.3f} ms device busy, {pre_ms:.3f} ms wall")
     result = {
         "prefill_tokens_per_s": sum(lengths) / stats["prefill_s"],
         "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["steps"],
@@ -4093,7 +4295,11 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
         "decode_forward_enqueue_ms": 1e3 * sorted(enqueue)[3],
         "decode_forward_completion_ms": 1e3 * sorted(done)[3],
         "end_to_end_tokens_per_s": generated / wall, "peak_gib": peak,
-        "requests": len(results), "decode_steps": stats["steps"]}
+        "requests": len(results), "decode_steps": stats["steps"],
+        "prefill_gemm_launches": n_pre, "long_prefill_ms": pre_ms,
+        "long_prefill_profile": prof and {
+            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            **{f"{k}_ms": v for k, v in prof["watched_ms"].items()}}}
     log(f"{label} " + json.dumps(result))
     del engine, model
     return launches
@@ -4128,14 +4334,18 @@ def main():
     for name, r in report.items():
         log(f"  {name}: {r['seconds']:.1f} s")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "entry function",
+                                       "wgmma")):
                 log(f"    {line.strip()}")
     log(f"  build wall {time.perf_counter() - t0:.1f} s")
-    # kernels 1-4 compute their products on the tensor cores: every kernel
-    # function of the two flash libraries holds wgmma (HGMMA) instructions
-    for lib in ("flash_attn_fwd", "flash_attn_bwd"):
+    # kernels 1-4 and kernel 5 at M > 8 compute their products on the
+    # tensor cores: every kernel function of the two flash libraries, and
+    # the storage GEMM's w4_gemm_tc, holds wgmma (HGMMA) instructions
+    for lib in ("flash_attn_fwd", "flash_attn_bwd", "affine_w4_matmul"):
         for part in _cuda.sass(lib).split("Function : ")[1:]:
             fn = part.split("\n", 1)[0].strip()
+            if lib == "affine_w4_matmul" and "w4_gemm_tc" not in fn:
+                continue
             n_mma = {op: len(re.findall(rf"\b{op}\.", part))
                      for op in ("HGMMA", "HMMA")}
             log(f"  {lib} SASS, {fn[:70]}: {n_mma['HGMMA']} HGMMA and "
@@ -4152,15 +4362,15 @@ def main():
     rows.update(gqa_kernel_phases(torch, timer))
     del timer
     parity_phase(torch, qt)
-    formats, format_counts = {}, {}
+    formats, format_counts, prefill_counts = {}, {}, {}
     for case in FORMAT_CASES:
-        formats[case[0]], format_counts[case[0]] = format_phase(torch, qt,
-                                                                case)
+        formats[case[0]], format_counts[case[0]], prefill_counts[case[0]] = \
+            format_phase(torch, qt, case)
     cfg, _ = serving_config(qt, 2, geom="phi3")
     params = phi3_params(torch, qt, cfg, "w4a16")
     for case in PHI3_CASES:
-        formats[case[0]], format_counts[case[0]] = format_phase(
-            torch, qt, case, "4c", params)
+        formats[case[0]], format_counts[case[0]], prefill_counts[case[0]] = \
+            format_phase(torch, qt, case, "4c", params)
     del params
     log("formats " + json.dumps(formats))
     ladder_parity_phase(torch, qt)
@@ -4222,10 +4432,22 @@ def main():
                "int_kv_decode_kt": "int_kv_decode_tile",
                "quantize_elemwise_nf4": "quantize_elemwise_nf",
                "quantize_elemwise_nf4_6": "quantize_elemwise_nf"}
+    # kernel 5's rows: the prefill rows count its M > 8 launches, the
+    # decode rows the rest
     path["affine_w4_matmul_prefill"] = flagship
-    counter["affine_w4_matmul_prefill"] = "affine_w4_matmul"
+    path["affine_w4_matmul_prefill_512"] = flagship
+    path["affine_w4_matmul_prefill_phi3"] = phi3_kivi
+    # the w2 format's 8-slot prefill, which runs before its decode steps
+    path["affine_w2_matmul_prefill"] = prefill_counts["w2a16_kivi2_13b"]
+    for key in ("affine_w4_matmul_prefill", "affine_w4_matmul_prefill_512",
+                "affine_w4_matmul_prefill_phi3", "affine_w2_matmul_prefill"):
+        counter[key] = "affine_w4_matmul_prefill"
     for key, row in rows.items():
-        if key == "flash_bwd_group":
+        if key in ("affine_w4_matmul", "affine_w4_matmul_phi3",
+                   "affine_w2_matmul"):
+            row["launches"] = path[key]["affine_w4_matmul"] - \
+                path[key]["affine_w4_matmul_prefill"]
+        elif key == "flash_bwd_group":
             row["launches"] = sum(train[k] for k in (
                 "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"))
         elif key == "flash_bwd_group_no_hooks":

@@ -17,37 +17,41 @@
 //
 // What bounds it on an H100: at decode (M <= 8) the bytes of the codes and
 // qparams (K*N*NBITS/8 + K*N/8 per GEMM at group 64) over 3.35 TB/s; at
-// prefill the 2*M*K*N operations.  Design for this first version (no tensor
-// cores yet):
-//   * M <= 8: one thread per output column, eight warps per block splitting
-//     K by groups, each warp loading a group's words for 32 adjacent columns
-//     (128-byte coalesced rows) before using them, so eight loads are in
-//     flight per warp; x rows are read through the L1 cache; the eight
-//     partial sums meet in shared memory.  No 8x padding of the rows.
-//   * M > 8: a 64x64 output tile per block, K walked 64 rows (64/PER word
-//     rows) at a time; the word tile is unpacked and dequantized once into
-//     shared
-//     memory and reused by all 64 rows; each thread accumulates a 4x4 tile
-//     with CUDA-core FMAs.
-// Words are unpacked by a left shift on the unsigned word and an arithmetic
-// right shift of its int32 reinterpretation (sign extension without any
-// undefined shift of a negative value).
+// prefill the 2*M*K*N operations, on the tensor cores.  Design:
+//   * M <= 8 (CUDA cores): one thread per output column, eight warps per
+//     block splitting K by groups, each warp loading a group's words for 32
+//     adjacent columns (128-byte coalesced rows) before using them, so eight
+//     loads are in flight per warp; x rows are read through the L1 cache;
+//     the eight partial sums meet in shared memory.  Words are unpacked by a
+//     left shift on the unsigned word and an arithmetic right shift of its
+//     int32 reinterpretation.
+//   * M > 8 (tensor cores, wgmma): the operands swapped, y^T = W^T x^T, so
+//     that the weight is dequantized in registers straight into wgmma's A
+//     fragment and never makes a bf16 round trip through shared memory; x
+//     is the B operand, K-major as it lies in memory, brought in by TMA.
+//     A thread's A fragment holds columns col_a and col_a + 8 at k 2q,
+//     2q+1, 2q+8, 2q+9 of each 16-deep k step (q = lane % 4), so it reads
+//     two words a column a step at w4 (one at w2), takes two (four) fields
+//     from each and packs them with cvt.rn.bf16x2; a quad reads the same
+//     word and a warp eight adjacent columns, without bank conflicts.
+//     About five CUDA-core operations a weight (shift, mask into a float's
+//     mantissa, subtract, subtract zp, multiply by sf, half a pack),
+//     reused over the block's BM tokens: BM = 256 halves their share of
+//     the issue slots against 128.  The A registers are double-buffered
+//     and wgmma.wait_group leaves one product in flight, so the dequant of
+//     one k step overlaps the product before it.  Each f32 sum is rounded
+//     once to bf16 (nearest even) and the tile is staged through shared
+//     memory for coalesced rows of y.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include "wgmma_tile.cuh"
 
 namespace {
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  // round to nearest even, as __float2bfloat16 does; NaN is kept NaN
-  uint32_t u = __float_as_uint(v);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return v;
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
 }
 
 __device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
@@ -142,106 +146,485 @@ w4_gemm_small_m(const uint16_t* __restrict__ x,
     y[static_cast<size_t>(m) * N + n] = float_to_bf16_bits(sum);
 }
 
-// ---- M > 8 ----------------------------------------------------------------
-constexpr int TB_M = 64;
-constexpr int TB_N = 64;
-constexpr int TB_K = 64;  // 64/PER word rows
-constexpr int TB_THREADS = 256;
+// ---- M > 8: tensor cores --------------------------------------------------
+// y^T = W^T x^T per block of TC_BN output columns x BM tokens: each of two
+// consumer warpgroups owns 64 columns and runs wgmma m64nBMk16 with the
+// dequantized weight tile (64 columns x 16 k) as the A operand in
+// registers and the x tile (BM tokens x 64 k, K-major as x lies in memory,
+// 128-byte swizzle) as the B operand in shared memory.  A producer warp
+// fills a ring of TC_STAGES stages, each one 64-deep K step: the x tile by
+// TMA, and the code words (64/PER word rows x TC_BN columns) and the sf
+// and zp rows of their groups by TMA too where the group is a multiple of
+// 64, N of 4 and the three 16-byte aligned (one qparam row a step), else by
+// its lanes' cp.async (one qparam row per word row): where both can serve,
+// the lanes' copies took 9-21% longer (PERF.md).  Full and empty
+// mbarriers pass the stages between the producer and the consumers, which
+// issue no copies: a first version whose consumers issued the copies ran
+// its products at about half the rate (PERF.md).
+constexpr int TC_CONSUMERS = 256;       // two consumer warpgroups
+constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and the producer warp
+constexpr int TC_BN = 128;              // output columns per block
+constexpr int TC_BK = 64;               // k per step
+constexpr int TC_STAGES = 4;
+constexpr int TC_COL_BYTES = TC_BN * 4; // one smem row of words or qparams
+constexpr int OUT_STRIDE = TC_BN + 8;   // bf16 per staged output row
 
-template <int NBITS>
-__global__ void __launch_bounds__(TB_THREADS)
-w4_gemm_tiled(const uint16_t* __restrict__ x,
-              const int32_t* __restrict__ codes,
-              const float* __restrict__ sf, const float* __restrict__ zp,
-              uint16_t* __restrict__ y, int M, int K, int N, int group) {
-  __shared__ __align__(16) float xs[TB_K][TB_M];  // x tile, k-major
-  __shared__ __align__(16) float ws[TB_K][TB_N];  // dequantized weights
+template <int NBITS, int BM, bool ONE_GROUP>
+struct TcLayout {
+  static constexpr int PER = 32 / NBITS;
+  static constexpr int WR = TC_BK / PER;           // word rows per step
+  static constexpr int QR = ONE_GROUP ? 1 : WR;    // qparam rows per step
+  static constexpr int X_BYTES = BM * ROW_BYTES;   // a multiple of 1024
+  static constexpr int W_BYTES = WR * TC_COL_BYTES;
+  static constexpr int Q_BYTES = QR * TC_COL_BYTES;  // sf, and again zp
+  static constexpr int WQ_BYTES = W_BYTES + 2 * Q_BYTES;
+  static constexpr int RING = TC_STAGES * (X_BYTES + WQ_BYTES);
+  static constexpr int OUT = BM * OUT_STRIDE * 2;
+  static constexpr int BARS = (RING > OUT ? RING : OUT);  // then 2 x STAGES
+  static constexpr int SMEM_BYTES = 1024 + BARS + 2 * TC_STAGES * 8;
+};
 
-  constexpr int PER = 32 / NBITS;
-  constexpr int WROWS = TB_K / PER;  // word rows per K step
+// ---- mbarriers --------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// waits until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// an arrival where pred holds, as a predicated instruction: a branch
+// between a wgmma and its wait makes ptxas serialize the products
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 st;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// one arrival on bar once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// one more arrival on bar, which also awaits bytes of asynchronous copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the 2-D box of map at (c0, c1), innermost first, into shared memory
+// at dst, its bytes counted on bar; the box's part outside the tensor reads
+// as zero
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// the consumers' own barrier (named barrier 1), without the producer warp
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+}
+
+// w = bf16((c - zp) * sf) for the codes at bits b.. of t, as dequant<NBITS>:
+// the field, its top bit flipped (c = centered + MID), is OR'd into the
+// mantissa of 2^(23-b), and subtracting 2^(23-b) gives float(c) exactly
+__device__ __forceinline__ float deq_at(uint32_t t, uint32_t mask,
+                                        uint32_t magic, float base, float z,
+                                        float s) {
+  const float c = __fsub_rn(__uint_as_float((t & mask) ^ magic), base);
+  return __fmul_rn(__fsub_rn(c, z), s);
+}
+
+// w4: fields 2q and 2q+1 of a word (bits 8q..8q+7), packed lo, hi
+__device__ __forceinline__ uint32_t deq4_pair(uint32_t w, int q, float z,
+                                              float s) {
+  const uint32_t t = w >> (8 * q);
+  return pack_bf16(deq_at(t, 0xfu, 0x4b000008u, 8388608.f, z, s),
+                   deq_at(t, 0xf0u, 0x49000080u, 524288.f, z, s));
+}
+
+// w2: fields 2q, 2q+1 (bits 4q..4q+3) into lo and 2q+8, 2q+9 (bits
+// 4q+16..4q+19) into hi
+__device__ __forceinline__ void deq2_quad(uint32_t w, int q, float z, float s,
+                                          uint32_t& lo, uint32_t& hi) {
+  const uint32_t t = w >> (4 * q);
+  lo = pack_bf16(deq_at(t, 0x3u, 0x4b000002u, 8388608.f, z, s),
+                 deq_at(t, 0xcu, 0x4a000008u, 2097152.f, z, s));
+  hi = pack_bf16(deq_at(t, 0x30000u, 0x43020000u, 128.f, z, s),
+                 deq_at(t, 0xc0000u, 0x42080000u, 32.f, z, s));
+}
+
+// ROWS rows of TC_BN 4-byte values of a (R, N) matrix, source row row(i)
+// (negative: zero) and columns n0.., into consecutive smem rows of
+// TC_COL_BYTES, by the 32 lanes of the producer warp; columns at or past N
+// are zero.  16-byte copies where vec16 (N % 4 == 0, so that a chunk lies
+// wholly inside or outside, and the source 16-byte aligned), else 4-byte
+// ones.
+template <int ROWS, typename RowFn>
+__device__ __forceinline__ void load_cols(uint32_t dst, const void* src,
+                                          RowFn row, int n0, int N, int lane,
+                                          bool vec16) {
+  const char* base = static_cast<const char*>(src);
+  if (vec16) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = row(i);
+#pragma unroll
+      for (int j = 0; j < TC_BN / 128; ++j) {
+        const int n = n0 + 4 * lane + 128 * j;
+        const bool ok = r >= 0 && n < N;
+        cp_async16(dst + i * TC_COL_BYTES + 16 * lane + 512 * j,
+                   base + (ok ? (static_cast<size_t>(r) * N + n) * 4 : 0),
+                   ok);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = row(i);
+#pragma unroll
+      for (int j = 0; j < TC_BN / 32; ++j) {
+        const int n = n0 + lane + 32 * j;
+        const bool ok = r >= 0 && n < N;
+        cp_async4(dst + i * TC_COL_BYTES + 4 * (lane + 32 * j),
+                  base + (ok ? (static_cast<size_t>(r) * N + n) * 4 : 0), ok);
+      }
+    }
+  }
+}
+
+template <int NBITS, int BM, bool ONE_GROUP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+w4_gemm_tc(const __grid_constant__ CUtensorMap x_map,
+           const __grid_constant__ CUtensorMap w_map,
+           const __grid_constant__ CUtensorMap s_map,
+           const __grid_constant__ CUtensorMap z_map,
+           const int32_t* __restrict__ codes, const float* __restrict__ sf,
+           const float* __restrict__ zp, uint16_t* __restrict__ y, int M,
+           int K, int N, int group, int tma_wq) {
+  using L = TcLayout<NBITS, BM, ONE_GROUP>;
+  constexpr int PER = L::PER;
+  constexpr int NACC = BM / 2;  // accumulator floats a thread: 64 x BM / 128
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t x_s = (raw + 1023u) & ~1023u;
+  const uint32_t wq_s = x_s + TC_STAGES * L::X_BYTES;
+  const uint32_t full = x_s + L::BARS;  // TC_STAGES barriers, then empty
+  const uint32_t empty = full + TC_STAGES * 8;
+  uint8_t* const smem = smem_raw + (x_s - raw);
+
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns 4*tx .. 4*tx+3
-  const int ty = tid / 16;  // output rows 4*ty .. 4*ty+3
-  const int m0 = blockIdx.y * TB_M;
-  const int n0 = blockIdx.x * TB_N;
-  const int kwords = K / PER;
-  const int gwords = group / PER;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.y * BM;
+  const int nsteps = (K + TC_BK - 1) / TC_BK;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      // the TMA copies, and the 32 lanes' cp.async copies unless TMA
+      // brings the words and qparams too
+      mbar_init(full + 8 * s, tma_wq ? 1 : 33);
+      mbar_init(empty + 8 * s, TC_CONSUMERS / 32);  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < K; k0 += TB_K) {
-    // x tile: 64 rows x 64 k, 16 values per thread (two 16-byte loads)
-    {
-      const int row = tid / 4;
-      const int kc = (tid % 4) * 16;
-      const int m = m0 + row;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = k0 + kc + 8 * h;
-        uint4 xv = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M && k < K)
-          xv = *reinterpret_cast<const uint4*>(
-              x + static_cast<size_t>(m) * K + k);
-        const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          xs[kc + 8 * h + 2 * q][row] = bf16_bits_to_float(xw[q] & 0xffffu);
-          xs[kc + 8 * h + 2 * q + 1][row] = bf16_bits_to_float(xw[q] >> 16);
+  if (tid >= TC_CONSUMERS) {
+    // the producer: the x tile by TMA (rows past M and k past K read as
+    // zero); the words and the group's qparams by TMA too where tma_wq
+    // (the group a multiple of 64, N of 4, the three 16-byte aligned), else
+    // by the lanes' cp.async, 16 bytes a copy where N % 4 == 0 and the
+    // three are aligned
+    const bool tma_all = ONE_GROUP && tma_wq;
+    const bool vec16 = (N & 3) == 0 &&
+                       ((reinterpret_cast<uintptr_t>(codes) |
+                         reinterpret_cast<uintptr_t>(sf) |
+                         reinterpret_cast<uintptr_t>(zp)) & 15) == 0;
+    const int kwords = K / PER;
+    const int gwords = group / PER;
+    for (int t = 0; t < nsteps; ++t) {
+      const int st = t % TC_STAGES;
+      if (t >= TC_STAGES) mbar_wait(empty + 8 * st, (t / TC_STAGES - 1) & 1);
+      const int k0 = t * TC_BK;
+      const int r0 = k0 / PER;
+      const int g0 = k0 / group;
+      const uint32_t w_s = wq_s + st * L::WQ_BYTES;
+      const uint32_t bar = full + 8 * st;
+      if (lane == 0) {
+        mbar_expect_tx(bar, L::X_BYTES + (tma_all ? L::WQ_BYTES : 0));
+        tma_load_2d(x_s + st * L::X_BYTES, &x_map, k0, m0, bar);
+        if (tma_all) {
+          tma_load_2d(w_s, &w_map, n0, r0, bar);
+          tma_load_2d(w_s + L::W_BYTES, &s_map, n0, g0, bar);
+          tma_load_2d(w_s + L::W_BYTES + L::Q_BYTES, &z_map, n0, g0, bar);
         }
       }
+      if (tma_all) continue;
+      load_cols<L::WR>(w_s, codes, [&](int i) {
+        return r0 + i < kwords ? r0 + i : -1;
+      }, n0, N, lane, vec16);
+      auto qrow = [&](int i) {
+        if (ONE_GROUP) return g0;
+        return r0 + i < kwords ? (r0 + i) / gwords : -1;
+      };
+      load_cols<L::QR>(w_s + L::W_BYTES, sf, qrow, n0, N, lane, vec16);
+      load_cols<L::QR>(w_s + L::W_BYTES + L::Q_BYTES, zp, qrow, n0, N, lane,
+                       vec16);
+      cp_async_arrive(bar);
     }
-    // word tile: WROWS word rows x 64 columns
+    cp_async_wait<0>();
+    return;
+  }
+
+  const int q = lane & 3;
+  // this thread's A rows: output columns col_a and col_a + 8 of the block
+  const int col_a = (tid >> 7) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  float acc[NACC];
 #pragma unroll
-    for (int h = 0; h < WROWS * TB_N / TB_THREADS; ++h) {
-      const int idx = tid + TB_THREADS * h;
-      const int wr = idx / TB_N;
-      const int col = idx % TB_N;
-      const int r = k0 / PER + wr;
-      const int n = n0 + col;
-      if (r < kwords && n < N) {
-        const uint32_t word = static_cast<uint32_t>(
-            codes[static_cast<size_t>(r) * N + n]);
-        const int g = r / gwords;
-        const float s = sf[static_cast<size_t>(g) * N + n];
-        const float z = zp[static_cast<size_t>(g) * N + n];
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  uint32_t frag[2][4];  // the A registers of two k steps
+
+  for (int t = 0; t < nsteps; ++t) {
+    const int st = t % TC_STAGES;
+    mbar_wait(full + 8 * st, (t / TC_STAGES) & 1);
+    const uint32_t xs = x_s + st * L::X_BYTES;
+    const uint8_t* wq = smem + TC_STAGES * L::X_BYTES + st * L::WQ_BYTES;
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(wq);
+    const float* ss = reinterpret_cast<const float*>(wq + L::W_BYTES);
+    const float* zs = ss + L::QR * TC_BN;
+    float s_a = 0.f, z_a = 0.f, s_b = 0.f, z_b = 0.f;
+    if (ONE_GROUP) {
+      s_a = ss[col_a];
+      z_a = zs[col_a];
+      s_b = ss[col_a + 8];
+      z_b = zs[col_a + 8];
+    }
+    // the step's words of both columns, read before the first dequant
+    uint32_t wv[L::WR][2];
 #pragma unroll
-        for (int p = 0; p < PER; ++p)
-          ws[wr * PER + p][col] = dequant<NBITS>(word, p, z, s);
+    for (int wr = 0; wr < L::WR; ++wr) {
+      wv[wr][0] = ws[wr * TC_BN + col_a];
+      wv[wr][1] = ws[wr * TC_BN + col_a + 8];
+    }
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t(&a)[4] = frag[kk & 1];
+      if (NBITS == 4) {
+        // k 2q, 2q+1 in word row 2kk, k 2q+8, 2q+9 in word row 2kk+1
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int wr = 2 * kk + h;
+          const int qa = ONE_GROUP ? 0 : wr;
+#pragma unroll
+          for (int ab = 0; ab < 2; ++ab) {
+            const int c = col_a + 8 * ab;
+            const float s = ONE_GROUP ? (ab ? s_b : s_a) : ss[qa * TC_BN + c];
+            const float z = ONE_GROUP ? (ab ? z_b : z_a) : zs[qa * TC_BN + c];
+            a[2 * h + ab] = deq4_pair(wv[wr][ab], q, z, s);
+          }
+        }
       } else {
+        // k 2q, 2q+1, 2q+8, 2q+9 in word row kk
+        const int qa = ONE_GROUP ? 0 : kk;
 #pragma unroll
-        for (int p = 0; p < PER; ++p) ws[wr * PER + p][col] = 0.f;
+        for (int ab = 0; ab < 2; ++ab) {
+          const int c = col_a + 8 * ab;
+          const float s = ONE_GROUP ? (ab ? s_b : s_a) : ss[qa * TC_BN + c];
+          const float z = ONE_GROUP ? (ab ? z_b : z_a) : zs[qa * TC_BN + c];
+          deq2_quad(wv[kk][ab], q, z, s, a[ab], a[2 + ab]);
+        }
       }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < TB_K; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n < N) y[static_cast<size_t>(m) * N + n] = float_to_bf16_bits(acc[i][j]);
+      fence_regs(acc);
+      wg_fence();
+      wgmma_rs_kmajor(acc, a, kmajor_desc<BM>(xs, kk));
+      wg_commit();
+      fence_regs(acc);
+      // the previous k step's product is done: its A registers may be
+      // written again
+      wg_wait<1>();
+      fence_regs(frag);
+      // and so is every product of step t - 1: its stage goes back, one
+      // arrival a warp (256 arrivals a step slowed the products)
+      if (kk == 0)
+        mbar_arrive_if(empty + 8 * ((t + TC_STAGES - 1) % TC_STAGES),
+                       lane == 0 && t > 0);
     }
   }
+  wg_wait<0>();
+  fence_regs(acc);
+  fence_regs(frag);
+
+  // y^T fragment -> staged [token][column] bf16 tile -> coalesced rows of y
+  consumers_sync();  // both warpgroups are done with the ring
+  uint16_t* out = reinterpret_cast<uint16_t*>(smem);
+#pragma unroll
+  for (int i = 0; i < NACC; i += 2) {
+    const int tok = 8 * (i >> 2) + 2 * q;
+    const int col = col_a + 8 * ((i >> 1) & 1);
+    const uint32_t v = pack_bf16(acc[i], acc[i + 1]);
+    out[tok * OUT_STRIDE + col] = static_cast<uint16_t>(v & 0xffffu);
+    out[(tok + 1) * OUT_STRIDE + col] = static_cast<uint16_t>(v >> 16);
+  }
+  consumers_sync();
+  for (int c = tid; c < BM * (TC_BN / 8); c += TC_CONSUMERS) {
+    const int r = c / (TC_BN / 8), cc = c % (TC_BN / 8);
+    const int m = m0 + r, n = n0 + 8 * cc;
+    if (m >= M || n >= N) continue;
+    const uint16_t* o = out + r * OUT_STRIDE + 8 * cc;
+    uint16_t* dst = y + static_cast<size_t>(m) * N + n;
+    if ((N & 7) == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+    } else {
+      for (int j = 0; j < 8 && n + j < N; ++j) dst[j] = o[j];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in the libcuda the process has
+// loaded (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) tensor of elem-byte values as box_cols x
+// box_rows boxes
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, int cols, int rows, int elem,
+                       int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int NBITS, int BM, bool ONE_GROUP>
+cudaError_t launch_tc(const uint16_t* x, const int32_t* codes, const float* sf,
+                      const float* zp, uint16_t* y, int M, int K, int N,
+                      int group, cudaStream_t s) {
+  using L = TcLayout<NBITS, BM, ONE_GROUP>;
+  // x (M, K) as BM x 64 boxes in the 128-byte swizzle wgmma reads
+  CUtensorMap x_map, w_map, s_map, z_map;
+  cudaError_t err = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
+                               K, M, 2, TC_BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  // the words, sf and zp as TC_BN-column boxes, where their rows are
+  // 16-byte aligned (N % 4 == 0) and a K step reads one group
+  const bool aligned = (reinterpret_cast<uintptr_t>(codes) |
+                        reinterpret_cast<uintptr_t>(sf) |
+                        reinterpret_cast<uintptr_t>(zp)) % 16 == 0;
+  const int tma_wq = ONE_GROUP && N % 4 == 0 && aligned;
+  w_map = s_map = z_map = x_map;
+  if (tma_wq) {
+    const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+    if ((err = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, codes, N,
+                          K / L::PER, 4, TC_BN, L::WR, none)) != cudaSuccess ||
+        (err = tensor_map(&s_map, f32, sf, N, K / group, 4, TC_BN, 1,
+                          none)) != cudaSuccess ||
+        (err = tensor_map(&z_map, f32, zp, N, K / group, 4, TC_BN, 1,
+                          none)) != cudaSuccess)
+      return err;
+  }
+  auto kern = w4_gemm_tc<NBITS, BM, ONE_GROUP>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + BM - 1) / BM);
+  kern<<<grid, TC_THREADS, L::SMEM_BYTES, s>>>(
+      x_map, w_map, s_map, z_map, codes, sf, zp, y, M, K, N, group, tma_wq);
+  return cudaGetLastError();
+}
+
+template <int NBITS, int BM>
+cudaError_t launch_tc_group(const uint16_t* x, const int32_t* codes,
+                            const float* sf, const float* zp, uint16_t* y,
+                            int M, int K, int N, int group, cudaStream_t s) {
+  if (group % TC_BK == 0)
+    return launch_tc<NBITS, BM, true>(x, codes, sf, zp, y, M, K, N, group, s);
+  return launch_tc<NBITS, BM, false>(x, codes, sf, zp, y, M, K, N, group, s);
+}
+
+template <int NBITS>
+cudaError_t launch_tc_tile(const uint16_t* x, const int32_t* codes,
+                           const float* sf, const float* zp, uint16_t* y,
+                           int M, int K, int N, int group, int tile_m,
+                           cudaStream_t s) {
+  if (tile_m == 64)
+    return launch_tc_group<NBITS, 64>(x, codes, sf, zp, y, M, K, N, group, s);
+  if (tile_m == 128)
+    return launch_tc_group<NBITS, 128>(x, codes, sf, zp, y, M, K, N, group, s);
+  if (tile_m == 256)
+    return launch_tc_group<NBITS, 256>(x, codes, sf, zp, y, M, K, N, group, s);
+  return cudaErrorInvalidValue;
+}
+
+// Token tile: as narrow as M allows, and 256 (half the dequant a product)
+// where its blocks still cover half the SMs
+int pick_tile_m(int M, int N) {
+  if (M <= 64) return 64;
+  if (M <= 128) return 128;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  const long blocks = static_cast<long>((N + TC_BN - 1) / TC_BN) *
+                      ((M + 255) / 256);
+  return 2 * blocks >= sms ? 256 : 128;
 }
 
 }  // namespace
@@ -251,6 +634,10 @@ extern "C" {
 const char* qt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// the largest M that affine_w4_matmul serves with w4_gemm_small_m (CUDA
+// cores); a larger M runs w4_gemm_tc (tensor cores)
+int affine_w4_matmul_small_m() { return SM_MAXM; }
 
 // x (M, K) bf16, codes (K/PER, N) int32, sf/zp (K/group, N) f32, y (M, N)
 // bf16, all contiguous; nbits 4 or 2 (PER = 32/nbits); K % group == 0,
@@ -273,16 +660,14 @@ int affine_w4_matmul(const void* x, const void* codes, const void* sf,
     else
       w4_gemm_small_m<2><<<grid, SM_WARPS * 32, 0, s>>>(xp, cp, sp, zpp, yp,
                                                         M, K, N, group);
-  } else {
-    dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
-    if (nbits == 4)
-      w4_gemm_tiled<4><<<grid, TB_THREADS, 0, s>>>(xp, cp, sp, zpp, yp, M, K,
-                                                   N, group);
-    else
-      w4_gemm_tiled<2><<<grid, TB_THREADS, 0, s>>>(xp, cp, sp, zpp, yp, M, K,
-                                                   N, group);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const int tile_m = pick_tile_m(M, N);
+  const cudaError_t err =
+      nbits == 4
+          ? launch_tc_tile<4>(xp, cp, sp, zpp, yp, M, K, N, group, tile_m, s)
+          : launch_tc_tile<2>(xp, cp, sp, zpp, yp, M, K, N, group, tile_m, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """Kernels written by hand for Hopper (sources under ``csrc/``), each with
 its plain PyTorch version.  A wrapper takes the plain version for CPU
 tensors, launches its kernel for CUDA tensors and counts the launches in
-``<wrapper>.launches`` (the two-pass flash kernel in
-``flash_attention.two_pass_launches``; the launches of either flash form
-that also saved the logsumexp for the backward in
+``<wrapper>.launches`` (the storage GEMM's M > 8 launches also in
+``affine_storage.affine_matmul.prefill_launches``; the two-pass flash
+kernel in ``flash_attention.two_pass_launches``; the launches of either
+flash form that also saved the logsumexp for the backward in
 ``flash_attention.lse_launches``; the integer-dot and K^T forms of the
 int-KV decode in ``int_kv_decode_attention.tile_launches``; the rounding
 kernel's NormalFloat and cast forms also in
@@ -20,6 +21,8 @@ from . import (adam8bit_step, affine_storage, flash_attention, int8_matmul,
 # kernel (as chip_smoke.py's table names it) -> (wrapper, counter attribute)
 KERNEL_COUNTERS = {
     "affine_w4_matmul": (affine_storage.affine_matmul, "launches"),
+    "affine_w4_matmul_prefill": (affine_storage.affine_matmul,
+                                 "prefill_launches"),
     "affine_dequant": (affine_storage.dequant_planes, "launches"),
     "mx_storage_matmul": (mx_storage.mx_matmul, "launches"),
     "posit_storage_matmul": (posit_storage.posit_matmul, "launches"),

@@ -138,6 +138,8 @@ def _lib():
         lib.affine_w4_matmul.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                          ci, vp]
         lib.affine_w4_matmul.restype = ci
+        lib.affine_w4_matmul_small_m.argtypes = []
+        lib.affine_w4_matmul_small_m.restype = ci
     return lib
 
 
@@ -147,7 +149,9 @@ def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
 
     CPU tensors take :func:`affine_matmul_plain`; CUDA tensors launch
     ``csrc/affine_w4_matmul.cu`` (bf16 x and output, nbits 4 or 2), and
-    anything the kernel does not take raises.
+    anything the kernel does not take raises.  An M above the library's
+    ``affine_w4_matmul_small_m()`` (8; prefill) runs the tensor-core kernel
+    and is counted also in ``affine_matmul.prefill_launches``.
     """
     if x.device.type == "cpu":
         return affine_matmul_plain(x, packed, sf, zp, nbits=nbits,
@@ -186,10 +190,13 @@ def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
         _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "affine_w4_matmul")
     affine_matmul.launches += 1
+    if M > lib.affine_w4_matmul_small_m():
+        affine_matmul.prefill_launches += 1
     return y
 
 
 affine_matmul.launches = 0
+affine_matmul.prefill_launches = 0
 
 
 # ---------------------------------------------------------------------------

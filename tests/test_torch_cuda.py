@@ -4,7 +4,8 @@ unpacked 8-bit Adam leaf launches kernel 13 and a packed one kernel 14,
 the int8 decode attention's integer-dot and K^T forms launch their kernel,
 the flash forward runs every form on the card within its bounds,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
-kernels and agree with their plain versions, the rounding kernel takes
+kernels and agree with their plain versions (the w4/w2 GEMM's tensor-core
+path at ragged shapes also bit for bit on the identity's rows), the rounding kernel takes
 the NormalFloat codebooks and native casts bit for bit, and both decode
 kernels take every instantiated GQA group and head dim (and refuse the
 rest).  Marked
@@ -139,6 +140,96 @@ def test_storage_gemm_launches_and_matches_plain(cuda_device, fmt):
         want = plain(x, *p, **kw)
         assert torch.allclose(got.float(), want.float(), atol=1e-4,
                               rtol=1e-2)
+
+
+def _affine_pack(fmt, K, N, group, gen, device):
+    """(codes, sf, zp, nbits) of a seeded (K, N) weight: w4, w2a16, or w2x4
+    (the w2 codes in the w4 word layout, zero points + 6, nbits 4)."""
+    w = torch.randn((K, N), generator=gen, device=device) / K ** .5
+    nbits = 4 if fmt == "w4" else 2
+    c, sf, zp = aff.pack_affine_weights(w, nbits, group)
+    if fmt == "w2x4":
+        c, zp, nbits = aff.expand_w2_words_to_w4(c), zp + 6, 4
+    return c, sf, zp, nbits
+
+
+@pytest.mark.parametrize("fmt", ["w4", "w2a16", "w2x4"])
+@pytest.mark.parametrize("group", [32, 64, 128])
+def test_storage_gemm_tensor_cores_match_plain(cuda_device, fmt, group):
+    """The M > 8 storage GEMM (wgmma, the weight dequantized in registers)
+    at ragged M and N: within 1e-4 + 1e-2*|plain| of the plain version
+    (chip_smoke.py's bound), counted as a prefill launch, the same bits
+    from a repeated call, and the identity's rows bit-equal to the
+    dequantized weight (k 0..63 and the last group).  On an H100 the
+    shapes take every token tile: M=9 the 64-token one, M=70 and N=200
+    the 128-token one, M=300 at N=4200 the 256-token one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    K = 512
+    fn = aff.affine_matmul
+    for N in (200, 4200):
+        c, sf, zp, nbits = _affine_pack(fmt, K, N, group, gen, cuda_device)
+        kw = dict(nbits=nbits, group_size=group)
+        for M in (9, 70, 300):
+            x = torch.randn((M, K), generator=gen,
+                            device=cuda_device).bfloat16()
+            want = aff.affine_matmul_plain(x, c, sf, zp, **kw)
+            before = fn.prefill_launches
+            got = _launches(fn, lambda: fn(x, c, sf, zp, **kw))
+            assert fn.prefill_launches == before + 1
+            assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                  rtol=1e-2), (N, M)
+            again = fn(x, c, sf, zp, **kw)
+            assert torch.equal(got.view(torch.int16),
+                               again.view(torch.int16)), (N, M)
+        rows = list(range(64)) + list(range(K - group, K))
+        eye = torch.zeros((len(rows), K), dtype=torch.bfloat16,
+                          device=cuda_device)
+        eye[torch.arange(len(rows)), torch.tensor(rows)] = 1
+        w_bf16 = aff._dequant_planes(c, sf, zp, nbits, group).bfloat16()
+        got = fn(eye, c, sf, zp, **kw)
+        assert torch.equal(got.view(torch.int16),
+                           w_bf16[rows].view(torch.int16)), N
+
+
+def test_storage_gemm_odd_widths_on_cuda(cuda_device):
+    """N not a multiple of 4 (4-byte copies of the words and qparams, 2-byte
+    stores of y) and K not a multiple of 64 (a partial last K step)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for fmt, K, N, group in [("w4", 200, 203, 8), ("w2a16", 224, 77, 32)]:
+        c, sf, zp, nbits = _affine_pack(fmt, K, N, group, gen, cuda_device)
+        kw = dict(nbits=nbits, group_size=group)
+        for M in (9, 130):
+            x = torch.randn((M, K), generator=gen,
+                            device=cuda_device).bfloat16()
+            want = aff.affine_matmul_plain(x, c, sf, zp, **kw)
+            got = aff.affine_matmul(x, c, sf, zp, **kw)
+            torch.cuda.synchronize()
+            assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                  rtol=1e-2), (fmt, M)
+
+
+def test_storage_gemm_unaligned_operands_on_cuda(cuda_device):
+    """Codes, sf and zp 4 bytes past 16-byte alignment (contiguous views
+    into a larger buffer) at N % 4 == 0, on both paths (M 8 and 130)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    K, N = 512, 256
+    for fmt, group in [("w4", 64), ("w2a16", 32)]:
+        packed = _affine_pack(fmt, K, N, group, gen, cuda_device)
+        c = []
+        for t in packed[:3]:
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype,
+                              device=cuda_device)
+            c.append(buf[1:].view(t.shape).copy_(t))
+        assert all(t.is_contiguous() and t.data_ptr() % 16 for t in c)
+        kw = dict(nbits=packed[3], group_size=group)
+        for M in (8, 130):
+            x = torch.randn((M, K), generator=gen,
+                            device=cuda_device).bfloat16()
+            want = aff.affine_matmul_plain(x, *c, **kw)
+            got = aff.affine_matmul(x, *c, **kw)
+            torch.cuda.synchronize()
+            assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                  rtol=1e-2), (fmt, M)
 
 
 def test_dequant_planes_bit_equal_on_cuda(cuda_device):

@@ -1,6 +1,6 @@
 """Parity of the port's w4a16 weight storage with the JAX package: packed
 codes and qparams bit-equal, the plain storage GEMM equal to the JAX
-fallback, and close to the JAX kernel body."""
+fallback, and close to the JAX kernel body (w4 and w2)."""
 
 import numpy as np
 import pytest
@@ -31,9 +31,10 @@ def _weights(K, N, seed=0):
     return (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
 
 
-def _pack_both(w):
-    jax_out = jax_affine.pack_affine_weights(jnp.asarray(w), 4, GROUP)
-    port_out = port_affine.pack_affine_weights(torch.from_numpy(w), 4, GROUP)
+def _pack_both(w, nbits=4):
+    jax_out = jax_affine.pack_affine_weights(jnp.asarray(w), nbits, GROUP)
+    port_out = port_affine.pack_affine_weights(torch.from_numpy(w), nbits,
+                                               GROUP)
     return [np.asarray(a) for a in jax_out], [t.numpy() for t in port_out]
 
 
@@ -89,21 +90,25 @@ def test_plain_matmul_equals_jax_fallback_f32(K, N):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("K,N,M", [(256, 96, 8), (192, 64, 3)])
-def test_plain_matmul_matches_jax_kernel_body_bf16(K, N, M):
+@pytest.mark.parametrize("K,N,M,nbits", [(256, 96, 8, 4), (192, 64, 3, 4),
+                                         (256, 96, 8, 2)],
+                         ids=["256-96-8", "192-64-3", "256-96-8-w2"])
+def test_plain_matmul_matches_jax_kernel_body_bf16(K, N, M, nbits):
     """bf16 inputs against the JAX kernel body run by the Pallas
     interpreter (centered codes times scale, then the zero-point
-    correction dot): the two round the weight at different points, so they
-    agree to the 2e-2 the JAX suite allows (test_storage_deploy.py:284)."""
-    (jc, js, jz), (tc, ts, tz) = _pack_both(_weights(K, N))
+    correction dot), w4 and w2: the two round the weight at different
+    points, so they agree to the 2e-2 the JAX suite allows
+    (test_storage_deploy.py:284)."""
+    (jc, js, jz), (tc, ts, tz) = _pack_both(_weights(K, N), nbits)
     x = np.random.default_rng(3).standard_normal((M, K)).astype(np.float32)
     jy = jax_affine.affine_matmul(
         jnp.asarray(x, jnp.bfloat16), jnp.asarray(jc), jnp.asarray(js),
-        jnp.asarray(jz), nbits=4, group_size=GROUP, force_kernel=True,
-        interpret=True, block_m=M, block_n=N, block_k=GROUP // 8)
+        jnp.asarray(jz), nbits=nbits, group_size=GROUP, force_kernel=True,
+        interpret=True, block_m=M, block_n=N,
+        block_k=GROUP // (32 // nbits))
     ty = port_affine.affine_matmul(
         torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(tc),
-        torch.from_numpy(ts), torch.from_numpy(tz), nbits=4,
+        torch.from_numpy(ts), torch.from_numpy(tz), nbits=nbits,
         group_size=GROUP)
     assert ty.dtype == torch.bfloat16
     np.testing.assert_allclose(ty.float().numpy(),
