@@ -144,6 +144,22 @@ profile one prefill of a longest prompt (the storage GEMM's and the flash
 forward's device time); the w2 prefill row counts the M > 8 launches of
 the w2a16 format's 8-slot prefill.
 
+Slice 11 redesigns kernels 9 and 10 at M <= 8 (the MX8 and posit8 storage
+GEMMs at decode, csrc/byte_storage_gemm.cuh:gemm_decode) for the tensor
+cores: phase 1 requires mma.sync (HMMA) in every gemm_decode function;
+phase 2/3 holds them (decode_form_phases) to the identity's rows bit for bit
+(MX block sizes 32, 64, 128, 8 and 24; posit8 es 0, 1, 2), a repeat bit for
+bit, M 1-8, odd N, K not a multiple of 64, MX block sizes 4 and 12 (the
+tiled form at M <= 8), codes 1, 2 and 4 bytes and MX scales 2 and 4 bytes
+past 16-byte alignment, and a planted fault of the split K (one split's
+slice dropped), and checks and times them at the 7B decode shapes (qkv, o,
+gate/up, down, lm_head; M=8 and M=1) beside the plain version, a bf16
+matmul on the dequantized weight and an int64 sum of the same code bytes
+(``stream_ms``); each of their rows counts the launches at its own shape
+in the format phase's decode steps (``shape_launch_counts``); the posit8
+and mx8 format phases trace one more decode step (``traced_decode_step``:
+busy ms, idle share, gemm_decode ms).
+
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2218,6 +2234,7 @@ def storage_kernel_phases(torch, timer):
             lambda p: aff._dequant_planes(*p, 2, 64).to(bf16),
             lambda K, N: K * N // 4 + 2 * (K // 64) * N * 4),
     }
+    case_err = {}
     for name, (tpu, src, pack, run, plain_fn, dequant,
                wbytes) in gemms.items():
         log(f"phase 2/3: {name} (tolerance {atol} + {rtol}*|plain|)")
@@ -2286,12 +2303,15 @@ def storage_kernel_phases(torch, timer):
                 f"dequantized weight){extra} bound_ms {b:.4f} ({by})")
             return r
 
-        main = (8, 5120, 15360) if name == "affine_w2_matmul" \
-            else (8, 4096, 12288)
-        for M, K, N in [(2048, 4096, 12288), (8, 13824, 5120)]:
+        # M > 8 (and kernel 5's w2 decode) rows; kernels 9 and 10 at M <= 8
+        # are timed by decode_form_phases
+        for M, K, N in [(2048, 4096, 12288)] + (
+                [(8, 13824, 5120)] if name == "affine_w2_matmul" else []):
             row(M, K, N)
         prefill = row(2048, 13824, 5120)
-        if name == "affine_w2_matmul":
+        if name != "affine_w2_matmul":
+            case_err[name] = max_err
+        else:
             rows["affine_w2_matmul_prefill"] = dict(
                 name="affine_w2_matmul_prefill", route="cuda",
                 source=f"quantized_training_torch/{src}",
@@ -2301,13 +2321,18 @@ def storage_kernel_phases(torch, timer):
                 "torch.matmul; launches = M > 8 launches of the w2a16 "
                 "format phase's 8-slot prefill (2 layers, 8 x 128 tokens)",
                 **prefill)
-        rows[name] = dict(
-            name=name, route="cuda",
-            source=f"quantized_training_torch/{src}",
-            replaces=f"quantized_training_tpu/ops/pallas/{tpu}",
-            max_abs_err=max_err,
-            shape="decode qkv M={} K={} N={}".format(*main), **row(*main))
+            rows[name] = dict(
+                name=name, route="cuda",
+                source=f"quantized_training_torch/{src}",
+                replaces=f"quantized_training_tpu/ops/pallas/{tpu}",
+                max_abs_err=max_err,
+                shape="decode qkv M=8 K=5120 N=15360", **row(8, 5120, 15360))
         packs.clear()
+
+    decode_rows, decode_shapes = decode_form_phases(torch, timer, failures,
+                                                    case_err)
+    rows.update(decode_rows)
+    DECODE_ROW_SHAPES.update(decode_shapes)
 
     # ---- w8a8: torch._int_mm (no kernel of the port), held exactly --------
     from quantized_training_torch.ops import int8_matmul as i8
@@ -2368,6 +2393,229 @@ def storage_kernel_phases(torch, timer):
     if failures:
         fail("kernel disagrees with its plain version: " + ", ".join(failures))
     return rows
+
+
+# LLaMA-2 7B's decode GEMM shapes (K, N): qkv fused, o, gate and up, down,
+# lm_head
+DECODE_SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096),
+                 "gate_up": (4096, 11008), "down": (11008, 4096),
+                 "lm_head": (4096, 32000)}
+# kernels 9 and 10's rows -> their (M, K, N), filled by decode_form_phases
+DECODE_ROW_SHAPES = {}
+
+
+def decode_form_phases(torch, timer, failures, case_err):
+    """Kernels 9 and 10 at M <= 8, the tensor-core decode form
+    (csrc/byte_storage_gemm.cuh:gemm_decode), beyond the cases they share
+    with the other storage GEMMs: the identity's rows bit-equal to the plain
+    version's bf16 weight (the first and last rows of K: MX block sizes 32,
+    64 and 128, and 8 and 24, which read a scale row for each half of a k
+    step; posit8 es 0, 1 and 2), a repeated call bit-equal, every M from 1
+    to 8, odd N, K not a multiple of 64 (posit8), MX block sizes that are
+    not a multiple of 8 (the tiled form at M <= 8), codes 1, 2 and 4 bytes
+    and MX scales 2 and 4 bytes past 16-byte alignment, and a planted
+    fault of the split K (one split's slice dropped from the sum); then, at
+    the 7B decode shapes, M=8 and M=1, a check against the plain version
+    and a row with the plain version, a bf16 matmul on the dequantized
+    weight and a streaming read of the same code bytes (an int64 sum: what
+    one PyTorch call takes to read them) beside the bound.  Returns the
+    kernel-table rows, whose max_abs_err also covers the shared cases
+    (``case_err``), and each row's (M, K, N)."""
+    from quantized_training_torch.ops import mx_storage as mx
+    from quantized_training_torch.ops import posit_storage as ps
+    from quantized_training_torch.ops._decode_gemm import decode_plan
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    atol, rtol = 1e-4, 1e-2
+    rows, row_shapes = {}, {}
+
+    def plan(name, M, K, N, param):
+        """the library's decode plan: (splits, workspace floats, counters,
+        rows a stage, SMs)"""
+        lib = (mx if name.startswith("mx") else ps)._lib()
+        return decode_plan(getattr(lib, f"{name}_decode_plan"),
+                           torch.device(dev, 0), M, K, N, param)
+
+    def weights(K, N):
+        return torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+
+    def forms(param):
+        """{name: (pack, run, plain, dequant, weight bytes)} at an MX block
+        size or a posit8 es"""
+        return {
+            "mx_storage_matmul": (
+                lambda w: mx.pack_mx_weights(w, block_size=param),
+                lambda x, p: mx.mx_matmul(x, *p, block_size=param),
+                lambda x, p: mx.mx_matmul_plain(x, *p, block_size=param),
+                lambda p: mx.mx_dequant(p[0], p[1], param),
+                lambda K, N: K * N + (K // param) * N * 2),
+            "posit_storage_matmul": (
+                lambda w: (ps.pack_posit_weights(w.to(bf16), es=param),),
+                lambda x, p: ps.posit_matmul(x, *p, es=param),
+                lambda x, p: ps.posit_matmul_plain(x, *p, es=param),
+                lambda p: ps.decode_posit(p[0], 8, param).to(bf16),
+                lambda K, N: K * N)}
+
+    def offset_view(t, nbytes):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        step = nbytes // t.element_size()
+        return buf[step:step + t.numel()].view(t.shape).copy_(t)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        ok, err = check_close(name, got, want, atol, rtol)
+        if not ok:
+            failures.append(name)
+        return err
+
+    for name, params in (("mx_storage_matmul", (32, 64, 128, 8, 24)),
+                         ("posit_storage_matmul", (0, 1, 2))):
+        log(f"phase 2/3: {name}, decode form (M <= 8; tolerance {atol} + "
+            f"{rtol}*|plain|, weights and repeats bit for bit)")
+        max_err = case_err.get(name, 0.0)
+        # the identity's rows, 8 a call: the first and last 128 rows of K
+        # (at least one MX block each), at K split over 8 blocks (block size
+        # 24: K=4104, whose last k step is a half)
+        N = 4096
+        for param in params:
+            K = 4104 if name.startswith("mx") and 4096 % param else 4096
+            pack, run, plain, dequant, _ = forms(param)[name]
+            p = pack(weights(K, N))
+            w_bf16 = dequant(p)
+            n_bad, where = 0, []
+            for r0 in list(range(0, 128, 8)) + list(range(K - 128, K, 8)):
+                eye = torch.zeros((8, K), dtype=bf16, device=dev)
+                eye[torch.arange(8), torch.arange(r0, r0 + 8)] = 1
+                b, w = bit_mismatches(run(eye, p), w_bf16[r0:r0 + 8])
+                n_bad += b
+                where += [r0] if b else []
+            what = "block size" if name.startswith("mx") else "es"
+            log(f"  identity rows 0..127 and {K - 128}..{K - 1}, {what} "
+                f"{param}, K={K} N={N}: lanes that differ {n_bad} "
+                f"(row blocks {where[:4]})")
+            if n_bad:
+                failures.append(f"{name} identity {what} {param}")
+        pack, run, plain, dequant, _ = forms(64 if name.startswith("mx")
+                                             else 1)[name]
+        # every M, a repeat, and the split K's planted fault
+        for K, N in [(4096, 12288), (11008, 4096), (4096, 4096)]:
+            p = pack(weights(K, N))
+            for M in (range(1, 9) if N == 4096 and K == 4096 else (8,)):
+                x = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+                got = run(x, p)
+                max_err = max(max_err, check(
+                    f"{name} M={M} K={K} N={N}", got, plain(x, p)))
+                if M != 8:
+                    continue
+                n_bad, where = bit_mismatches(run(x, p), got)
+                log(f"  repeat M=8 K={K} N={N}: lanes that differ {n_bad} "
+                    f"{where}")
+                if n_bad:
+                    failures.append(f"{name} repeat K={K} N={N}")
+                splits, _, _, stage, _ = plan(name, 8, K, N,
+                                              64 if name.startswith("mx")
+                                              else 1)
+                if splits > 1:
+                    # split s takes stages [s * n / splits, (s + 1) * n /
+                    # splits) of the n stages (bsg::decode_plan)
+                    s, n = splits // 2, -(-K // stage)
+                    k0 = stage * (s * n // splits)
+                    k1 = min(K, stage * ((s + 1) * n // splits))
+                    x_f = x.clone()
+                    x_f[:, k0:k1] = 0
+                    planted_fault(f"{name} K={K} N={N}, split {splits // 2} "
+                                  f"of {splits} (rows {k0}..{k1 - 1}) "
+                                  f"dropped", got, plain(x_f, p), atol, rtol,
+                                  failures)
+        # odd N (byte copies, a ragged last tile), K not a multiple of 64
+        # (posit8: a partial last k step and stage)
+        odd = [(8, 4096, 4097), (3, 4096, 1000)]
+        if name.startswith("posit"):
+            odd += [(8, 4104, 4097), (5, 4104, 4096), (1, 200, 77)]
+        for M, K, N in odd:
+            p = pack(weights(K, N))
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+            max_err = max(max_err, check(f"{name} M={M} K={K} N={N}",
+                                         run(x, p), plain(x, p)))
+        if name.startswith("mx"):
+            # block sizes the decode form does not take (not a multiple of
+            # 8) go to the tiled form at M <= 8 too; 24 (two scale rows a k
+            # step) at every M
+            for bs, Ms in ((4, (1, 8)), (12, (1, 5, 8)), (24, range(1, 9))):
+                pack_b, run_b, plain_b, _, _ = forms(bs)[name]
+                K, N = 4104, 4096
+                p = pack_b(weights(K, N))
+                for M in Ms:
+                    x = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+                    max_err = max(max_err, check(
+                        f"{name} block size {bs} M={M} K={K} N={N}",
+                        run_b(x, p), plain_b(x, p)))
+        # codes (and MX scales) at byte offsets from 16-byte alignment
+        K, N = 4096, 4096
+        p = pack(weights(K, N))
+        x = torch.randn((8, K), generator=gen, device=dev).to(bf16)
+        want = plain(x, p)
+        views = [(f"codes {off} bytes past alignment",
+                  (offset_view(p[0], off),) + tuple(p[1:]))
+                 for off in (1, 2, 4)]
+        if name.startswith("mx"):
+            views += [(f"scales {off} bytes past alignment",
+                       (p[0], offset_view(p[1], off))) for off in (2, 4)]
+        for what, q in views:
+            max_err = max(max_err, check(f"{name} M=8 K={K} N={N}, {what}",
+                                         run(x, q), want))
+
+        # the 7B decode shapes, M=8 and M=1: a check, then a timed row
+        src = name.replace("_matmul", "_matmul.cu")
+        tpu = "mx_storage.py:50" if name.startswith("mx") else \
+            "posit_storage.py:39"
+        param = 64 if name.startswith("mx") else 1
+        _, _, _, _, wbytes = forms(param)[name]
+        named = []
+        for label, (K, N) in DECODE_SHAPES.items():
+            p = pack(weights(K, N))
+            w = dequant(p)
+            for M in (8, 1):
+                x = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+                max_err = max(max_err, check(
+                    f"{name} {label} M={M} K={K} N={N}", run(x, p),
+                    plain(x, p)))
+                ms = timer(lambda: run(x, p))
+                plain_ms = timer(lambda: plain(x, p), reps=5)
+                lib = timer(lambda: torch.matmul(x, w))
+                stream = timer(lambda: p[0].view(torch.int64).sum())
+                b, by = bound_ms(wbytes(K, N) + M * K * 2 + M * N * 2,
+                                 2 * M * K * N)
+                log(f"  time {label} M={M} K={K} N={N} (splits "
+                    f"{plan(name, M, K, N, param)[0]}): kernel_ms {ms:.4f} "
+                    f"plain_ms {plain_ms:.4f} library_ms {lib:.4f} (bf16 "
+                    f"matmul on the dequantized weight) stream_ms "
+                    f"{stream:.4f} (int64 sum of the codes) bound_ms "
+                    f"{b:.4f} ({by})")
+                key = {("qkv", 8): name, ("qkv", 1): f"{name}_m1",
+                       ("o", 8): f"{name}_o",
+                       ("gate_up", 8): f"{name}_gate_up",
+                       ("down", 8): f"{name}_down",
+                       ("lm_head", 8): f"{name}_lm_head"}.get((label, M))
+                if key:
+                    named.append(key)
+                    row_shapes[key] = (M, K, N)
+                    rows[key] = dict(
+                        name=key, route="cuda",
+                        source=f"quantized_training_torch/csrc/{src}",
+                        replaces=f"quantized_training_tpu/ops/pallas/{tpu}",
+                        shape=f"decode {label} M={M} K={K} N={N} (7B); "
+                        "library = bf16 torch.matmul on the dequantized "
+                        "weight; stream = int64 sum of the codes; launches "
+                        f"= launches at M={M} K={K} N={N} in the format "
+                        "phase's 6 decode steps (8 slots" + (
+                            ", so none at M=1)" if M == 1 else ")"),
+                        ms=ms, plain_ms=plain_ms, library_ms=lib,
+                        stream_ms=stream, bound_ms=b, bound_by=by)
+            del p, w
+        for key in named:
+            rows[key]["max_abs_err"] = max_err
+    return rows, row_shapes
 
 
 # ------------------------------------------------------- slice 7: GQA forms
@@ -2896,7 +3144,7 @@ def format_phase(torch, qt, case, phase="4b", params=None):
     plain path's cache and are fed its greedy token); then a prefill of 8
     slots and 6 decode steps on the card, the decode steps timed, with the
     launch counters around each (returned: metrics, decode counts, prefill
-    counts).
+    counts); for posit8 and mx8 one more decode step is traced.
 
     The bound is the JAX suite's 0.15 + 0.05*|plain| elementwise, except
     for w8a8: its dynamic per-token int8 quantizer inside every GEMM turns
@@ -2908,7 +3156,7 @@ def format_phase(torch, qt, case, phase="4b", params=None):
     What that loose check cannot see, shared_gemm_check holds exactly: every
     w8a8 GEMM of the model fed the CPU's input."""
     from quantized_training_torch.ops import launch_counts, \
-        reset_launch_counts
+        reset_launch_counts, shape_launch_counts
     label, fmt, cache, geom, kernels = case
     cfg, qc = serving_config(qt, 2, fmt, cache, geom)
     log(f"phase {phase}: {label}: 2-layer {geom} width ({cfg.hidden_size}), "
@@ -2986,9 +3234,24 @@ def format_phase(torch, qt, case, phase="4b", params=None):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         counts = launch_counts()
+        # kernels 9 and 10's launches by (M, K, N)
+        counts["shapes"] = shape_launch_counts()
     ms = sorted(times)[steps // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = bool(torch.isfinite(logits).all())
+    traced = None
+    if fmt in ("posit8", "mx8"):
+        # one more decode step, traced: kernels 9 and 10 (gemm_decode)
+        # beside the rest of the device's work
+        def one_step():
+            with torch.no_grad():
+                gpu(tok, use_cache=True, caches=caches, cache_index=S + steps)
+        prof = profile(torch, one_step, ms, "decode step",
+                       watch=("gemm_decode",))
+        if prof:
+            traced = {"wall_ms": ms, "busy_ms": prof["busy_ms"],
+                      "idle_share": prof["idle_share"],
+                      "storage_gemm_ms": prof["watched_ms"]["gemm_decode"]}
     del gpu, caches, logits
     log(f"  decode, {B} slots: {ms:.3f} ms/step (median of "
         f"{[round(t, 3) for t in times]}), peak {peak:.2f} GiB; launches in "
@@ -2998,9 +3261,12 @@ def format_phase(torch, qt, case, phase="4b", params=None):
     if not finite or any(counts[k] == 0 for k in kernels):
         fail(f"{label}: decode logits finite {finite}, a kernel of its path "
              f"({kernels}) never launched: {counts}")
-    return {"decode_ms_per_step": ms, "peak_gib": peak, "worst_err": worst,
-            "greedy_equal": tokens["kernel"] == tokens["plain"]}, counts, \
-        prefill_counts
+    metrics = {"decode_ms_per_step": ms, "peak_gib": peak,
+               "worst_err": worst,
+               "greedy_equal": tokens["kernel"] == tokens["plain"]}
+    if traced:
+        metrics["traced_decode_step"] = traced
+    return metrics, counts, prefill_counts
 
 
 def bench_config(qt, layers):
@@ -4340,18 +4606,23 @@ def main():
     log(f"  build wall {time.perf_counter() - t0:.1f} s")
     # kernels 1-4 and kernel 5 at M > 8 compute their products on the
     # tensor cores: every kernel function of the two flash libraries, and
-    # the storage GEMM's w4_gemm_tc, holds wgmma (HGMMA) instructions
-    for lib in ("flash_attn_fwd", "flash_attn_bwd", "affine_w4_matmul"):
+    # the storage GEMM's w4_gemm_tc, holds wgmma (HGMMA) instructions;
+    # kernels 9 and 10 at M <= 8 (gemm_decode) hold mma.sync (HMMA) ones
+    need = {"flash_attn_fwd": ("", "HGMMA"), "flash_attn_bwd": ("", "HGMMA"),
+            "affine_w4_matmul": ("w4_gemm_tc", "HGMMA"),
+            "mx_storage_matmul": ("gemm_decode", "HMMA"),
+            "posit_storage_matmul": ("gemm_decode", "HMMA")}
+    for lib, (only, op) in need.items():
         for part in _cuda.sass(lib).split("Function : ")[1:]:
             fn = part.split("\n", 1)[0].strip()
-            if lib == "affine_w4_matmul" and "w4_gemm_tc" not in fn:
+            if only not in fn:
                 continue
-            n_mma = {op: len(re.findall(rf"\b{op}\.", part))
-                     for op in ("HGMMA", "HMMA")}
+            n_mma = {o: len(re.findall(rf"\b{o}\.", part))
+                     for o in ("HGMMA", "HMMA")}
             log(f"  {lib} SASS, {fn[:70]}: {n_mma['HGMMA']} HGMMA and "
                 f"{n_mma['HMMA']} HMMA instructions")
-            if not n_mma["HGMMA"]:
-                fail(f"{lib}: {fn} has no wgmma instruction")
+            if not n_mma[op]:
+                fail(f"{lib}: {fn} has no {op} instruction")
 
     timer = Timer(torch)
     rows = kernel_phases(torch, timer)
@@ -4407,8 +4678,6 @@ def main():
             "kivi_decode": flagship, "int_kv_decode": serving,
             "int_kv_decode_8bit": format_counts["w4a16_kv8"],
             "affine_w2_matmul": format_counts["w2a16_kivi2_13b"],
-            "posit_storage_matmul": format_counts["posit8_kv4"],
-            "mx_storage_matmul": format_counts["mx8_kv4"],
             "flash_attn_fwd_lse": train, "flash_bwd_di": train,
             "flash_bwd_dq": train, "flash_bwd_dkv": train,
             "adam8bit_packed": train, "adam8bit_unpacked": bert,
@@ -4437,6 +4706,10 @@ def main():
     path["affine_w4_matmul_prefill"] = flagship
     path["affine_w4_matmul_prefill_512"] = flagship
     path["affine_w4_matmul_prefill_phi3"] = phi3_kivi
+    # kernels 9 and 10's rows: the launches at each row's own shape in the
+    # format phase's decode steps
+    storage_fmt = {"mx_storage_matmul": "mx8_kv4",
+                   "posit_storage_matmul": "posit8_kv4"}
     # the w2 format's 8-slot prefill, which runs before its decode steps
     path["affine_w2_matmul_prefill"] = prefill_counts["w2a16_kivi2_13b"]
     for key in ("affine_w4_matmul_prefill", "affine_w4_matmul_prefill_512",
@@ -4447,6 +4720,10 @@ def main():
                    "affine_w2_matmul"):
             row["launches"] = path[key]["affine_w4_matmul"] - \
                 path[key]["affine_w4_matmul_prefill"]
+        elif key in DECODE_ROW_SHAPES:
+            kernel = row["source"].rsplit("/", 1)[1][:-3]
+            row["launches"] = format_counts[storage_fmt[kernel]]["shapes"][
+                kernel].get(DECODE_ROW_SHAPES[key], 0)
         elif key == "flash_bwd_group":
             row["launches"] = sum(train[k] for k in (
                 "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"))

@@ -8,7 +8,8 @@ flash form that also saved the logsumexp for the backward in
 ``flash_attention.lse_launches``; the integer-dot and K^T forms of the
 int-KV decode in ``int_kv_decode_attention.tile_launches``; the rounding
 kernel's NormalFloat and cast forms also in
-``quantize_elemwise.nf_launches`` and ``cast_launches``).
+``quantize_elemwise.nf_launches`` and ``cast_launches``; the MX8 and
+posit8 GEMMs' launches also by (M, K, N) in ``shape_launches``).
 
 The submodules keep their names (``ops.flash_attention`` is the module);
 import the wrappers from them.
@@ -49,15 +50,29 @@ KERNEL_COUNTERS = {
 }
 
 
+# kernel -> wrapper whose ``shape_launches`` tallies its launches by shape
+SHAPE_COUNTERS = {"mx_storage_matmul": mx_storage.mx_matmul,
+                  "posit_storage_matmul": posit_storage.posit_matmul}
+
+
 def launch_counts() -> dict:
     """{kernel: launches since the last reset}."""
     return {name: getattr(fn, attr)
             for name, (fn, attr) in KERNEL_COUNTERS.items()}
 
 
+def shape_launch_counts() -> dict:
+    """{kernel: {(M, K, N): launches since the last reset}}."""
+    return {name: dict(fn.shape_launches)
+            for name, fn in SHAPE_COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn, attr in KERNEL_COUNTERS.values():
         setattr(fn, attr, 0)
+    for fn in SHAPE_COUNTERS.values():
+        fn.shape_launches.clear()
 
 
-__all__ = ["KERNEL_COUNTERS", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNEL_COUNTERS", "SHAPE_COUNTERS", "launch_counts",
+           "shape_launch_counts", "reset_launch_counts"]

@@ -11,6 +11,7 @@ fake-quant with the scale stored in bf16.
 """
 
 import ctypes
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -18,6 +19,7 @@ import torch
 from ..numerics import quantize_fn
 from ..quantize.ops import calculate_mx_qparam, expand_scale
 from . import _cuda
+from ._decode_gemm import decode_args
 
 __all__ = ["pack_mx_weights", "mx_dequant", "mx_matmul", "mx_matmul_plain"]
 
@@ -53,8 +55,12 @@ def _lib():
     lib = _cuda.load("mx_storage_matmul")
     if lib.mx_storage_matmul.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mx_storage_matmul.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.mx_storage_matmul.argtypes = [vp, vp, vp, vp, vp, ci, vp, ci, ci,
+                                          ci, ci, ci, ci, vp]
         lib.mx_storage_matmul.restype = ci
+        lib.mx_storage_matmul_decode_plan.argtypes = [
+            ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.mx_storage_matmul_decode_plan.restype = None
     return lib
 
 
@@ -64,7 +70,10 @@ def mx_matmul(x, codes, scales, *, block_size=64):
 
     CPU tensors take :func:`mx_matmul_plain`; CUDA tensors launch
     ``csrc/mx_storage_matmul.cu`` (bf16 x and output), and anything the
-    kernel does not take raises.
+    kernel does not take raises.  M <= 8 with a block size that is a
+    multiple of 8 runs the tensor-core decode form, K split over blocks
+    (``_decode_gemm``); any other M or block size the tiled form.  Each
+    launch is also tallied by its (M, K, N) in ``mx_matmul.shape_launches``.
     """
     if x.device.type == "cpu":
         return mx_matmul_plain(x, codes, scales, block_size=block_size)
@@ -93,12 +102,18 @@ def mx_matmul(x, codes, scales, *, block_size=64):
         raise ValueError("mx_matmul kernel: " + "; ".join(problems))
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _lib()
+    stream = _cuda.stream_ptr(x.device)
+    part, floats, count, ints, sms = decode_args(
+        lib.mx_storage_matmul_decode_plan, x.device, stream, M, K, N,
+        block_size)
     err = lib.mx_storage_matmul(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), y.data_ptr(), M,
-        K, N, block_size, _cuda.stream_ptr(x.device))
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), y.data_ptr(),
+        part, floats, count, ints, M, K, N, block_size, sms, stream)
     _cuda.check(lib, err, "mx_storage_matmul")
     mx_matmul.launches += 1
+    mx_matmul.shape_launches[(M, K, N)] += 1
     return y
 
 
 mx_matmul.launches = 0
+mx_matmul.shape_launches = Counter()

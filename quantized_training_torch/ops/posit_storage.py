@@ -9,11 +9,13 @@ decoded weight is the posit value itself.
 """
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from ..numerics.posit import decode_posit, encode_posit
 from . import _cuda
+from ._decode_gemm import decode_args
 
 __all__ = ["pack_posit_weights", "posit_decode_table", "posit_matmul",
            "posit_matmul_plain"]
@@ -47,9 +49,12 @@ def _lib():
     lib = _cuda.load("posit_storage_matmul")
     if lib.posit_storage_matmul.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.posit_storage_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                             vp]
+        lib.posit_storage_matmul.argtypes = [vp, vp, vp, vp, ci, vp, ci, ci,
+                                             ci, ci, ci, ci, ci, vp]
         lib.posit_storage_matmul.restype = ci
+        lib.posit_storage_matmul_decode_plan.argtypes = [
+            ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.posit_storage_matmul_decode_plan.restype = None
     return lib
 
 
@@ -58,7 +63,10 @@ def posit_matmul(x, codes, *, nbits=8, es=1):
 
     CPU tensors take :func:`posit_matmul_plain`; CUDA tensors launch
     ``csrc/posit_storage_matmul.cu`` (bf16 x and output, posit8 with es
-    0-2), and anything the kernel does not take raises.
+    0-2), and anything the kernel does not take raises.  M <= 8 runs the
+    tensor-core decode form, K split over blocks (``_decode_gemm``).  Each
+    launch is also tallied by its (M, K, N) in
+    ``posit_matmul.shape_launches``.
     """
     if x.device.type == "cpu":
         return posit_matmul_plain(x, codes, nbits=nbits, es=es)
@@ -85,12 +93,17 @@ def posit_matmul(x, codes, *, nbits=8, es=1):
     N = codes.shape[1]
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _lib()
+    stream = _cuda.stream_ptr(x.device)
+    part, floats, count, ints, sms = decode_args(
+        lib.posit_storage_matmul_decode_plan, x.device, stream, M, K, N, es)
     err = lib.posit_storage_matmul(
-        x.data_ptr(), codes.data_ptr(), y.data_ptr(), M, K, N, nbits, es,
-        _cuda.stream_ptr(x.device))
+        x.data_ptr(), codes.data_ptr(), y.data_ptr(), part, floats, count,
+        ints, M, K, N, nbits, es, sms, stream)
     _cuda.check(lib, err, "posit_storage_matmul")
     posit_matmul.launches += 1
+    posit_matmul.shape_launches[(M, K, N)] += 1
     return y
 
 
 posit_matmul.launches = 0
+posit_matmul.shape_launches = Counter()

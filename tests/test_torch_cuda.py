@@ -5,7 +5,9 @@ the int8 decode attention's integer-dot and K^T forms launch their kernel,
 the flash forward runs every form on the card within its bounds,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
 kernels and agree with their plain versions (the w4/w2 GEMM's tensor-core
-path at ragged shapes also bit for bit on the identity's rows), the rounding kernel takes
+path at ragged shapes also bit for bit on the identity's rows, as the MX8
+and posit8 decode form at every block size and es, with odd N and
+misaligned codes and scales), the rounding kernel takes
 the NormalFloat codebooks and native casts bit for bit, and both decode
 kernels take every instantiated GQA group and head dim (and refuse the
 rest).  Marked
@@ -230,6 +232,131 @@ def test_storage_gemm_unaligned_operands_on_cuda(cuda_device):
             torch.cuda.synchronize()
             assert torch.allclose(got.float(), want.float(), atol=1e-4,
                                   rtol=1e-2), (fmt, M)
+
+
+# ---- kernels 9 and 10 at M <= 8: the tensor-core decode form --------------
+def _byte_pack(fmt, param, K, N, gen, device):
+    """(wrapper, plain, operands, keywords, bf16 weight) of a seeded (K, N)
+    weight in MX8 (param: the block size) or posit8 (param: es)."""
+    w = torch.randn((K, N), generator=gen, device=device) / K ** .5
+    if fmt == "mx8":
+        p = mx_storage.pack_mx_weights(w, block_size=param)
+        return (mx_storage.mx_matmul, mx_storage.mx_matmul_plain, p,
+                dict(block_size=param), mx_storage.mx_dequant(*p, param))
+    codes = posit_storage.pack_posit_weights(w.bfloat16(), es=param)
+    return (posit_storage.posit_matmul, posit_storage.posit_matmul_plain,
+            (codes,), dict(es=param),
+            posit_storage.decode_posit(codes, 8, param).bfloat16())
+
+
+def _offset_view(t, nbytes):
+    """t copied into a contiguous view ``nbytes`` past 16-byte alignment."""
+    step = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[step:step + t.numel()].view(t.shape).copy_(t)
+    assert view.data_ptr() % 16 == nbytes
+    return view
+
+
+_DECODE_FORMS = [("mx8", 32), ("mx8", 64), ("mx8", 128), ("mx8", 8),
+                 ("mx8", 24), ("posit8", 0), ("posit8", 1), ("posit8", 2)]
+
+
+@pytest.mark.parametrize("fmt,param", _DECODE_FORMS)
+def test_decode_form_identity_rows_bit_equal(cuda_device, fmt, param):
+    """The identity's rows, 8 a call, give the plain version's bf16 weight
+    rows bit for bit: the first and last 128 rows of K, at a K split over
+    several blocks (K=1024; 1032 at MX block size 24) and at one block
+    (K=128; 120)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    shapes = [(1024, 256), (128, 384)]
+    if fmt == "mx8" and 128 % param:
+        shapes = [(1032, 256), (120, 384)]
+    for K, N in shapes:
+        fn, _, p, kw, w_bf16 = _byte_pack(fmt, param, K, N, gen, cuda_device)
+        for r0 in sorted({0, 64, K - 128, K - 64, K - 8}):
+            rows = list(range(r0, r0 + 8))
+            eye = torch.zeros((8, K), dtype=torch.bfloat16, device=cuda_device)
+            eye[torch.arange(8), torch.tensor(rows)] = 1
+            got = _launches(fn, lambda: fn(eye, *p, **kw))
+            assert torch.equal(got.view(torch.int16),
+                               w_bf16[rows].view(torch.int16)), (K, r0)
+
+
+@pytest.mark.parametrize("fmt,param", [("mx8", 64), ("posit8", 1)])
+def test_decode_form_every_m_and_repeat(cuda_device, fmt, param):
+    """M 1-8 within 1e-4 + 1e-2*|plain| (chip_smoke.py's bound), one launch
+    a call, and a repeated call bit-equal, at K split over 16, 4 and 1
+    blocks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    for K, N in [(4096, 256), (512, 256), (128, 512)]:
+        fn, plain, p, kw, _ = _byte_pack(fmt, param, K, N, gen, cuda_device)
+        for M in range(1, 9):
+            x = torch.randn((M, K), generator=gen,
+                            device=cuda_device).bfloat16()
+            got = _launches(fn, lambda: fn(x, *p, **kw))
+            want = plain(x, *p, **kw)
+            assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                  rtol=1e-2), (K, M)
+            again = fn(x, *p, **kw)
+            assert torch.equal(got.view(torch.int16),
+                               again.view(torch.int16)), (K, M)
+
+
+@pytest.mark.parametrize("fmt,param", [("mx8", 32), ("posit8", 2)])
+def test_decode_form_odd_shapes_and_offsets(cuda_device, fmt, param):
+    """Odd N (a ragged last tile, byte copies), K not a multiple of 64 or 16
+    (posit8), codes 1, 2 and 4 bytes past 16-byte alignment and MX scales
+    2 and 4 bytes past it: within the bound, the identity's first rows bit
+    for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    shapes = [(512, 77), (256, 1000)]
+    if fmt == "posit8":
+        shapes += [(520, 136), (200, 130)]
+    for K, N in shapes:
+        fn, plain, p, kw, w_bf16 = _byte_pack(fmt, param, K, N, gen,
+                                              cuda_device)
+        variants = [p] + [(_offset_view(p[0], off),) + tuple(p[1:])
+                          for off in (1, 2, 4)]
+        if fmt == "mx8":
+            variants += [(p[0], _offset_view(p[1], off)) for off in (2, 4)]
+        for q in variants:
+            for M in (1, 8):
+                x = torch.randn((M, K), generator=gen,
+                                device=cuda_device).bfloat16()
+                got = _launches(fn, lambda: fn(x, *q, **kw))
+                want = plain(x, *q, **kw)
+                assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                      rtol=1e-2), (K, N, M)
+            eye = torch.eye(8, K, dtype=torch.bfloat16, device=cuda_device)
+            got = fn(eye, *q, **kw)
+            assert torch.equal(got.view(torch.int16),
+                               w_bf16[:8].view(torch.int16)), (K, N)
+
+
+@pytest.mark.parametrize("block_size", [4, 12, 24])
+def test_mx_decode_at_other_block_sizes(cuda_device, block_size):
+    """MX block sizes that are not a multiple of 16 at M 1-8: 24 (a
+    multiple of 8) in the decode form, a scale row for each half of a k
+    step; 4 and 12 in the tiled form.  Within 1e-4 + 1e-2*|plain|, one
+    launch a call, the identity's rows bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    for K, N in [(1032, 256), (120, 200)]:
+        fn, plain, p, kw, w_bf16 = _byte_pack("mx8", block_size, K, N, gen,
+                                              cuda_device)
+        for M in range(1, 9):
+            x = torch.randn((M, K), generator=gen,
+                            device=cuda_device).bfloat16()
+            got = _launches(fn, lambda: fn(x, *p, **kw))
+            want = plain(x, *p, **kw)
+            assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                  rtol=1e-2), (K, M)
+        for r0 in (0, K - 8):
+            eye = torch.zeros((8, K), dtype=torch.bfloat16, device=cuda_device)
+            eye[torch.arange(8), torch.arange(r0, r0 + 8)] = 1
+            assert torch.equal(fn(eye, *p, **kw).view(torch.int16),
+                               w_bf16[r0:r0 + 8].view(torch.int16)), (K, r0)
 
 
 def test_dequant_planes_bit_equal_on_cuda(cuda_device):

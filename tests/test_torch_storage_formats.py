@@ -323,3 +323,38 @@ def test_kernel_wrappers_reject_other_devices(wrapper, args):
     x = torch.zeros((2, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="device"):
         wrapper(x, *(a.to("meta") for a in args))
+
+
+def test_decode_workspace_and_plan_kept(monkeypatch):
+    """The MX8/posit8 decode form's host side: the library's plan is asked
+    once a shape and device, a launch without split K gets no workspace,
+    and the workspace and zeroed counters are kept per device and stream,
+    grown when a call needs more."""
+    from quantized_training_torch.ops import _decode_gemm as dg
+    asked = []
+
+    def fake_plan(M, K, N, param, sms, out):
+        asked.append((M, K, N, param, sms))
+        out[0], out[1], out[2], out[3] = (2, 4096, 3, 128) if N > 128 \
+            else (1, 0, 0, 128)
+
+    cpu = torch.device("cpu")
+    monkeypatch.setitem(dg._SMS, cpu.index, 132)
+    monkeypatch.setattr(dg, "_PLANS", {})
+    monkeypatch.setattr(dg, "_WORKSPACES", {})
+    assert dg.decode_plan(fake_plan, cpu, 8, 4096, 4096, 64) == \
+        (2, 4096, 3, 128, 132)
+    assert dg.decode_plan(fake_plan, cpu, 8, 4096, 4096, 64)[0] == 2
+    assert asked == [(8, 4096, 4096, 64, 132)]
+    assert dg.decode_args(fake_plan, cpu, 7, 8, 4096, 128, 64) == \
+        (None, 0, None, 0, 132)
+    part, floats, count, ints, sms = dg.decode_args(fake_plan, cpu, 7, 8,
+                                                    4096, 4096, 64)
+    assert floats >= 4096 and ints >= 3 and sms == 132
+    ws = dg.decode_workspace(cpu, 7, 4096, 3)
+    assert (ws[0], ws[2]) == (part, count)
+    assert not ws[5].any() and ws[4].dtype == torch.float32
+    assert dg.decode_workspace(cpu, 8, 16, 1)[0] != part   # another stream
+    grown = dg.decode_workspace(cpu, 7, 10 * floats, ints)
+    assert grown[1] >= 10 * floats and grown[0] != part and grown[2] == count
+    assert dg.decode_workspace(cpu, 7, 4096, 3)[0] == grown[0]

@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""Time kernel 5, the w4/w2 storage GEMM (``csrc/affine_w4_matmul.cu``), of
-one or more checkouts of the port at its prefill shapes on one NVIDIA GPU,
-so that two versions of the kernel are compared within one run:
+"""Time the storage GEMMs of one or more checkouts of the port on one NVIDIA
+GPU, so that two versions of a kernel are compared within one run: kernel 5
+(the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at its prefill shapes, and
+kernels 9 and 10 (the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu``
+and ``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes:
 
-    python3 time_storage_gemm.py ROOT [ROOT ...]
+    python3 time_storage_gemm.py [--steps-only] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``quantized_training_torch`` package
 (``.`` for this checkout).  The checkouts are timed in the order given, each
 in a process of its own (name one twice to time it twice, as in A B B A).
-A process builds its checkout's kernel into that checkout's ``_build/``,
+A process builds its checkout's kernels into that checkout's ``_build/``,
 checks one call at each shape against the plain version (1e-4 +
 1e-2*|plain|, chip_smoke.py's bound) and times it with chip_smoke.py's
-``Timer`` (median of 15 calls, L2 flushed).  Every weight is seeded, group
-64.  Prints a line per checkout and shape, then the card's name and power
-limit and one JSON object with every reading; exits non-zero if a check
-fails or CUDA is not available.
+``Timer`` (median of 15 calls, L2 flushed); it also reads the host's cost
+of a call, the mean over 200 calls queued back to back without a wait
+(the card runs behind, so the host sets that pace).  Every weight is seeded, group
+or MX block 64, posit8 es 1.  Then it serves chip_smoke.py's posit8_kv4
+and mx8_kv4 format arms (2 layers at 7B width, 8 slots of 128 prompt
+tokens): the median of 20 decode steps' wall time and of their host time
+(from the step's call until it has been queued, before the wait for the
+card), and one more step traced (``torch.profiler``) for the device's busy
+time, its idle share and the device time of the byte-storage GEMMs
+(kernels in ``bsg::``).  ``--steps-only`` serves the arms and times no
+shape, for many alternating runs (P A P A ...) in one call.  Prints a line
+per checkout and shape or arm, then the card's name and power limit and
+one JSON object with every reading; exits non-zero if a check fails or
+CUDA is not available.
 """
 
 import importlib.util
@@ -22,28 +34,60 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# (label, nbits, M, K, N): LLaMA-2 7B's qkv and down at the largest prefill
-# bucket and its qkv at the smallest, Phi-3-medium's gate/up, and the w2
-# format's two prefill rows of chip_smoke.py
-SHAPES = [("7B qkv", 4, 2048, 4096, 12288),
-          ("7B down", 4, 2048, 11008, 4096),
-          ("7B qkv, bucket 512", 4, 512, 4096, 12288),
-          ("Phi-3 gate/up", 4, 2048, 5120, 17920),
-          ("w2, 7B qkv", 2, 2048, 4096, 12288),
-          ("w2, 13B down", 2, 2048, 13824, 5120)]
+# (label, format, M, K, N): kernel 5 at LLaMA-2 7B's qkv and down at the
+# largest prefill bucket and its qkv at the smallest, Phi-3-medium's
+# gate/up, and the w2 format's two prefill rows of chip_smoke.py; kernels 9
+# and 10 at the 7B decode shapes (qkv fused, o, gate and up, down, lm_head)
+SHAPES = [("7B qkv", "w4", 2048, 4096, 12288),
+          ("7B down", "w4", 2048, 11008, 4096),
+          ("7B qkv, bucket 512", "w4", 512, 4096, 12288),
+          ("Phi-3 gate/up", "w4", 2048, 5120, 17920),
+          ("w2, 7B qkv", "w2", 2048, 4096, 12288),
+          ("w2, 13B down", "w2", 2048, 13824, 5120)]
+for _fmt in ("mx8", "posit8"):
+    SHAPES += [(f"{_fmt} decode {label}", _fmt, M, K, N)
+               for label, K, N, Ms in [("qkv", 4096, 12288, (8, 1)),
+                                       ("o", 4096, 4096, (8,)),
+                                       ("gate/up", 4096, 11008, (8,)),
+                                       ("down", 11008, 4096, (8,)),
+                                       ("lm_head", 4096, 32000, (8,))]
+               for M in Ms]
 
 
-def time_one(root):
-    """Time ROOT's kernel at every shape; prints one JSON line."""
+def gemm(fmt, w):
+    """(call(x), plain(x)) of the storage GEMM of ``fmt`` on weight w."""
+    from quantized_training_torch.ops import affine_storage as aff
+    from quantized_training_torch.ops import mx_storage as mx
+    from quantized_training_torch.ops import posit_storage as ps
+    if fmt in ("w4", "w2"):
+        nbits = 4 if fmt == "w4" else 2
+        p = aff.pack_affine_weights(w, nbits, 64)
+        return (lambda x: aff.affine_matmul(x, *p, nbits=nbits,
+                                            group_size=64),
+                lambda x: aff.affine_matmul_plain(x, *p, nbits=nbits,
+                                                  group_size=64))
+    if fmt == "mx8":
+        p = mx.pack_mx_weights(w, block_size=64)
+        return (lambda x: mx.mx_matmul(x, *p, block_size=64),
+                lambda x: mx.mx_matmul_plain(x, *p, block_size=64))
+    c = ps.pack_posit_weights(w.bfloat16(), es=1)
+    return (lambda x: ps.posit_matmul(x, c, es=1),
+            lambda x: ps.posit_matmul_plain(x, c, es=1))
+
+
+def time_one(root, steps_only=False):
+    """Time ROOT's kernels at every shape (none with ``steps_only``) and
+    its decode steps; prints one JSON line."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
-    from quantized_training_torch.ops import affine_storage as aff
-    if not aff.__file__.startswith(root):
-        raise RuntimeError(f"imported {aff.__file__}, not from {root}")
+    import quantized_training_torch.ops as ops
+    if not ops.__file__.startswith(root):
+        raise RuntimeError(f"imported {ops.__file__}, not from {root}")
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -51,26 +95,69 @@ def time_one(root):
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = smoke.Timer(torch)
     rows = []
-    for label, nbits, M, K, N in SHAPES:
+    for label, fmt, M, K, N in [] if steps_only else SHAPES:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
-        codes, sf, zp = aff.pack_affine_weights(w, nbits, 64)
+        call, plain = gemm(fmt, w)
         x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-
-        def call():
-            return aff.affine_matmul(x, codes, sf, zp, nbits=nbits,
-                                     group_size=64)
-
-        got = call().float()
-        want = aff.affine_matmul_plain(x, codes, sf, zp, nbits=nbits,
-                                       group_size=64).float()
+        got = call(x).float()
+        want = plain(x).float()
         ok = bool(((got - want).abs() <= 1e-4 + 1e-2 * want.abs()).all())
-        rows.append(dict(shape=label, nbits=nbits, M=M, K=K, N=N, ok=ok,
-                         ms=timer(call)))
-        del w, codes, sf, zp, x, got, want
-    print(json.dumps({"root": root, "rows": rows}), flush=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            call(x)
+        host_us = (time.perf_counter() - t) / 200 * 1e6
+        torch.cuda.synchronize()
+        rows.append(dict(shape=label, format=fmt, M=M, K=K, N=N, ok=ok,
+                         ms=timer(lambda: call(x)), host_us=host_us))
+        del w, call, plain, x, got, want
+    steps = [decode_step(torch, smoke, fmt) for fmt in ("posit8", "mx8")]
+    print(json.dumps({"root": root, "rows": rows, "decode_steps": steps}),
+          flush=True)
 
 
-def main(roots):
+def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
+    """chip_smoke.py's format arm ``fmt``_kv4 at 2 layers: a prefill of B
+    slots of S tokens, ``steps`` timed decode steps (wall and host time),
+    one more traced."""
+    import quantized_training_torch as qt
+    cfg, qc = smoke.serving_config(qt, 2, fmt, "int4")
+    model = qt.LlamaForCausalLM(cfg, qc, device="cuda")
+    model.load_state_dict(qt.random_params(cfg, fmt, 64, seed=0,
+                                           device="cuda"), assign=True)
+    ids = torch.randint(0, cfg.vocab_size, (B, S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.no_grad():
+        logits, caches = model(ids, use_cache=True, prompt_len=S,
+                               last_logit_only=True)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        times, host = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = model(tok, use_cache=True, caches=caches,
+                                   cache_index=S + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            host.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    ms = sorted(times)[steps // 2]
+    host_ms = sorted(host)[steps // 2]
+
+    def one_step():
+        with torch.no_grad():
+            model(tok, use_cache=True, caches=caches, cache_index=S + steps)
+
+    prof = smoke.profile(torch, one_step, ms, "decode step",
+                         watch=("bsg::",)) or {}
+    return {"format": fmt, "decode_ms_per_step": ms, "host_ms_per_step":
+            host_ms,
+            "busy_ms": prof.get("busy_ms"),
+            "idle_share": prof.get("idle_share"),
+            "storage_gemm_ms": prof.get("watched_ms", {}).get("bsg::")}
+
+
+def main(roots, steps_only=False):
     import torch
     if not torch.cuda.is_available():
         print("time_storage_gemm: CUDA is not available", file=sys.stderr)
@@ -81,7 +168,9 @@ def main(roots):
     runs, ok = [], True
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True,
+                               "--one", root] + (["--steps-only"] if
+                                                 steps_only else []),
+                              capture_output=True,
                               text=True, timeout=900)
         line = proc.stdout.strip().splitlines()[-1:] or [""]
         if proc.returncode != 0 or not line[0].startswith("{"):
@@ -92,10 +181,17 @@ def main(roots):
         run = json.loads(line[0])
         runs.append(run)
         for r in run["rows"]:
-            print(f"{root}  {r['shape']:<20} nbits={r['nbits']} M={r['M']} "
-                  f"K={r['K']} N={r['N']}: {r['ms']:.4f} ms, within bound "
+            print(f"{root}  {r['shape']:<24} M={r['M']} "
+                  f"K={r['K']} N={r['N']}: {r['ms']:.4f} ms, host "
+                  f"{r['host_us']:.1f} us a call, within bound "
                   f"{r['ok']}", flush=True)
             ok = ok and r["ok"]
+        for d in run["decode_steps"]:
+            print(f"{root}  {d['format']}_kv4 decode step: "
+                  f"{d['decode_ms_per_step']:.3f} ms wall, host "
+                  f"{d['host_ms_per_step']:.3f} ms, busy "
+                  f"{d['busy_ms']} ms, idle share {d['idle_share']}, "
+                  f"storage GEMMs {d['storage_gemm_ms']} ms", flush=True)
     print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
     print(json.dumps({"storage_gemm_times": runs}))
     return 0 if ok else 1
@@ -103,7 +199,9 @@ def main(roots):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        time_one(sys.argv[2])
+        time_one(sys.argv[2], "--steps-only" in sys.argv[3:])
+    elif sys.argv[1:2] == ["--steps-only"] and len(sys.argv) > 2:
+        sys.exit(main(sys.argv[2:], steps_only=True))
     elif len(sys.argv) > 1:
         sys.exit(main(sys.argv[1:]))
     else:
