@@ -150,7 +150,7 @@ cores: phase 1 requires mma.sync (HMMA) in every gemm_decode function;
 phase 2/3 holds them (decode_form_phases) to the identity's rows bit for bit
 (MX block sizes 32, 64, 128, 8 and 24; posit8 es 0, 1, 2), a repeat bit for
 bit, M 1-8, odd N, K not a multiple of 64, MX block sizes 4 and 12 (the
-tiled form at M <= 8), codes 1, 2 and 4 bytes and MX scales 2 and 4 bytes
+wgmma form at M <= 8 since slice 12), codes 1, 2 and 4 bytes and MX scales 2 and 4 bytes
 past 16-byte alignment, and a planted fault of the split K (one split's
 slice dropped), and checks and times them at the 7B decode shapes (qkv, o,
 gate/up, down, lm_head; M=8 and M=1) beside the plain version, a bf16
@@ -159,6 +159,27 @@ matmul on the dequantized weight and an int64 sum of the same code bytes
 in the format phase's decode steps (``shape_launch_counts``); the posit8
 and mx8 format phases trace one more decode step (``traced_decode_step``:
 busy ms, idle share, gemm_decode ms).
+
+Slice 12 redesigns kernels 9 and 10 at M > 8 (the MX8 and posit8 storage
+GEMMs at prefill, csrc/byte_storage_gemm.cuh:gemm_tc, which replaces the
+CUDA-core gemm_tiled) for the tensor cores, on the k loop and output
+staging they share with kernel 5's w4_gemm_tc (csrc/tma_pipe.cuh): phase 1
+requires wgmma (HGMMA) in every gemm_tc function and fails on a ptxas
+C7512/C7513 warning naming one of them or w4_gemm_tc; phase 2/3 holds them
+(tc_form_phases) to the whole identity (M = K)
+bit for bit at MX block sizes 8, 16, 24, 32, 64 and 128 and posit8 es 0,
+1 and 2, a repeat at M=2048 bit for bit, ragged M (9, 129, 1000), odd N,
+codes and MX scales past 16-byte alignment, and a planted fault of each
+at M=1000 (a K block reading its neighbour's scales; the most frequent
+posit8 code decoded as its neighbour), and checks and times them at the
+7B qkv and down at M=2048, at qkv M=128 and at the four shapes of the
+format arms' 8-slot prefill (qkv, o, gate/up, down at M=1024) beside the
+plain version, a bf16 matmul on the dequantized weight and the
+reference's fallback (dequantize, then a bf16 matmul: ``fallback_ms``);
+the posit8 and mx8 format phases check that their 8-slot prefill makes 5
+M > 8 launches a layer (each row carries those at its own M, K and N, so
+the M=1024 rows carry them all) and time and trace one more prefill
+(``traced_prefill``: busy ms, idle share, gemm_tc ms).
 
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -2234,11 +2255,11 @@ def storage_kernel_phases(torch, timer):
             lambda p: aff._dequant_planes(*p, 2, 64).to(bf16),
             lambda K, N: K * N // 4 + 2 * (K // 64) * N * 4),
     }
-    case_err = {}
+    case_err, case_err_tc = {}, {}
     for name, (tpu, src, pack, run, plain_fn, dequant,
                wbytes) in gemms.items():
         log(f"phase 2/3: {name} (tolerance {atol} + {rtol}*|plain|)")
-        max_err = 0.0
+        max_err = max_err_tc = 0.0
         packs = {}
         for M, K, N in cases:
             if (K, N) not in packs:
@@ -2246,8 +2267,11 @@ def storage_kernel_phases(torch, timer):
             p = packs[(K, N)]
             x = randn(M, K, dtype=bf16)
             got = run(x, p)
-            max_err = max(max_err, check(f"M={M} K={K} N={N}", got,
-                                         plain_fn(x, p), atol, rtol))
+            err = check(f"M={M} K={K} N={N}", got, plain_fn(x, p), atol,
+                        rtol)
+            max_err = max(max_err, err)
+            if M > 8:
+                max_err_tc = max(max_err_tc, err)
             if (M, K, N) != (8, 11008, 4096):
                 continue
             if name == "posit_storage_matmul":
@@ -2303,15 +2327,14 @@ def storage_kernel_phases(torch, timer):
                 f"dequantized weight){extra} bound_ms {b:.4f} ({by})")
             return r
 
-        # M > 8 (and kernel 5's w2 decode) rows; kernels 9 and 10 at M <= 8
-        # are timed by decode_form_phases
-        for M, K, N in [(2048, 4096, 12288)] + (
-                [(8, 13824, 5120)] if name == "affine_w2_matmul" else []):
-            row(M, K, N)
-        prefill = row(2048, 13824, 5120)
+        # kernel 5's w2 rows; kernels 9 and 10 are timed by
+        # decode_form_phases (M <= 8) and tc_form_phases (M > 8)
         if name != "affine_w2_matmul":
-            case_err[name] = max_err
+            case_err[name], case_err_tc[name] = max_err, max_err_tc
         else:
+            for M, K, N in [(2048, 4096, 12288), (8, 13824, 5120)]:
+                row(M, K, N)
+            prefill = row(2048, 13824, 5120)
             rows["affine_w2_matmul_prefill"] = dict(
                 name="affine_w2_matmul_prefill", route="cuda",
                 source=f"quantized_training_torch/{src}",
@@ -2333,6 +2356,9 @@ def storage_kernel_phases(torch, timer):
                                                     case_err)
     rows.update(decode_rows)
     DECODE_ROW_SHAPES.update(decode_shapes)
+    tc_rows, tc_shapes = tc_form_phases(torch, timer, failures, case_err_tc)
+    rows.update(tc_rows)
+    TC_ROW_SHAPES.update(tc_shapes)
 
     # ---- w8a8: torch._int_mm (no kernel of the port), held exactly --------
     from quantized_training_torch.ops import int8_matmul as i8
@@ -2395,6 +2421,53 @@ def storage_kernel_phases(torch, timer):
     return rows
 
 
+def byte_gemm_helpers(torch, gen, failures, atol, rtol):
+    """The helpers of kernels 9 and 10's phases: weights(K, N), a layer's
+    random weight from ``gen``; offset_view(t, nbytes), a copy of t that
+    starts nbytes past a 16-byte-aligned allocation; check(name, got,
+    want), within atol + rtol*|want|, which notes a failure in
+    ``failures`` and returns the largest error."""
+    dev = "cuda"
+
+    def weights(K, N):
+        return torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+
+    def offset_view(t, nbytes):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        step = nbytes // t.element_size()
+        return buf[step:step + t.numel()].view(t.shape).copy_(t)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        ok, err = check_close(name, got, want, atol, rtol)
+        if not ok:
+            failures.append(name)
+        return err
+
+    return weights, offset_view, check
+
+
+def byte_gemm_forms(torch, param):
+    """Kernels 9 and 10 at an MX block size or a posit8 es: {name: (pack,
+    run, plain, dequant, weight bytes)}."""
+    from quantized_training_torch.ops import mx_storage as mx
+    from quantized_training_torch.ops import posit_storage as ps
+    bf16 = torch.bfloat16
+    return {
+        "mx_storage_matmul": (
+            lambda w: mx.pack_mx_weights(w, block_size=param),
+            lambda x, p: mx.mx_matmul(x, *p, block_size=param),
+            lambda x, p: mx.mx_matmul_plain(x, *p, block_size=param),
+            lambda p: mx.mx_dequant(p[0], p[1], param),
+            lambda K, N: K * N + (K // param) * N * 2),
+        "posit_storage_matmul": (
+            lambda w: (ps.pack_posit_weights(w.to(bf16), es=param),),
+            lambda x, p: ps.posit_matmul(x, *p, es=param),
+            lambda x, p: ps.posit_matmul_plain(x, *p, es=param),
+            lambda p: ps.decode_posit(p[0], 8, param).to(bf16),
+            lambda K, N: K * N)}
+
+
 # LLaMA-2 7B's decode GEMM shapes (K, N): qkv fused, o, gate and up, down,
 # lm_head
 DECODE_SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096),
@@ -2412,7 +2485,7 @@ def decode_form_phases(torch, timer, failures, case_err):
     64 and 128, and 8 and 24, which read a scale row for each half of a k
     step; posit8 es 0, 1 and 2), a repeated call bit-equal, every M from 1
     to 8, odd N, K not a multiple of 64 (posit8), MX block sizes that are
-    not a multiple of 8 (the tiled form at M <= 8), codes 1, 2 and 4 bytes
+    not a multiple of 8 (the wgmma form at M <= 8), codes 1, 2 and 4 bytes
     and MX scales 2 and 4 bytes past 16-byte alignment, and a planted
     fault of the split K (one split's slice dropped from the sum); then, at
     the 7B decode shapes, M=8 and M=1, a check against the plain version
@@ -2428,6 +2501,8 @@ def decode_form_phases(torch, timer, failures, case_err):
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     atol, rtol = 1e-4, 1e-2
     rows, row_shapes = {}, {}
+    weights, offset_view, check = byte_gemm_helpers(torch, gen, failures,
+                                                    atol, rtol)
 
     def plan(name, M, K, N, param):
         """the library's decode plan: (splits, workspace floats, counters,
@@ -2435,38 +2510,6 @@ def decode_form_phases(torch, timer, failures, case_err):
         lib = (mx if name.startswith("mx") else ps)._lib()
         return decode_plan(getattr(lib, f"{name}_decode_plan"),
                            torch.device(dev, 0), M, K, N, param)
-
-    def weights(K, N):
-        return torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
-
-    def forms(param):
-        """{name: (pack, run, plain, dequant, weight bytes)} at an MX block
-        size or a posit8 es"""
-        return {
-            "mx_storage_matmul": (
-                lambda w: mx.pack_mx_weights(w, block_size=param),
-                lambda x, p: mx.mx_matmul(x, *p, block_size=param),
-                lambda x, p: mx.mx_matmul_plain(x, *p, block_size=param),
-                lambda p: mx.mx_dequant(p[0], p[1], param),
-                lambda K, N: K * N + (K // param) * N * 2),
-            "posit_storage_matmul": (
-                lambda w: (ps.pack_posit_weights(w.to(bf16), es=param),),
-                lambda x, p: ps.posit_matmul(x, *p, es=param),
-                lambda x, p: ps.posit_matmul_plain(x, *p, es=param),
-                lambda p: ps.decode_posit(p[0], 8, param).to(bf16),
-                lambda K, N: K * N)}
-
-    def offset_view(t, nbytes):
-        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
-        step = nbytes // t.element_size()
-        return buf[step:step + t.numel()].view(t.shape).copy_(t)
-
-    def check(name, got, want):
-        torch.cuda.synchronize()
-        ok, err = check_close(name, got, want, atol, rtol)
-        if not ok:
-            failures.append(name)
-        return err
 
     for name, params in (("mx_storage_matmul", (32, 64, 128, 8, 24)),
                          ("posit_storage_matmul", (0, 1, 2))):
@@ -2479,7 +2522,8 @@ def decode_form_phases(torch, timer, failures, case_err):
         N = 4096
         for param in params:
             K = 4104 if name.startswith("mx") and 4096 % param else 4096
-            pack, run, plain, dequant, _ = forms(param)[name]
+            pack, run, plain, dequant, _ = byte_gemm_forms(torch,
+                                                           param)[name]
             p = pack(weights(K, N))
             w_bf16 = dequant(p)
             n_bad, where = 0, []
@@ -2495,8 +2539,8 @@ def decode_form_phases(torch, timer, failures, case_err):
                 f"(row blocks {where[:4]})")
             if n_bad:
                 failures.append(f"{name} identity {what} {param}")
-        pack, run, plain, dequant, _ = forms(64 if name.startswith("mx")
-                                             else 1)[name]
+        pack, run, plain, dequant, _ = byte_gemm_forms(
+            torch, 64 if name.startswith("mx") else 1)[name]
         # every M, a repeat, and the split K's planted fault
         for K, N in [(4096, 12288), (11008, 4096), (4096, 4096)]:
             p = pack(weights(K, N))
@@ -2539,10 +2583,11 @@ def decode_form_phases(torch, timer, failures, case_err):
                                          run(x, p), plain(x, p)))
         if name.startswith("mx"):
             # block sizes the decode form does not take (not a multiple of
-            # 8) go to the tiled form at M <= 8 too; 24 (two scale rows a k
+            # 8) go to the wgmma form at M <= 8 too; 24 (two scale rows a k
             # step) at every M
             for bs, Ms in ((4, (1, 8)), (12, (1, 5, 8)), (24, range(1, 9))):
-                pack_b, run_b, plain_b, _, _ = forms(bs)[name]
+                pack_b, run_b, plain_b, _, _ = byte_gemm_forms(torch,
+                                                               bs)[name]
                 K, N = 4104, 4096
                 p = pack_b(weights(K, N))
                 for M in Ms:
@@ -2570,7 +2615,7 @@ def decode_form_phases(torch, timer, failures, case_err):
         tpu = "mx_storage.py:50" if name.startswith("mx") else \
             "posit_storage.py:39"
         param = 64 if name.startswith("mx") else 1
-        _, _, _, _, wbytes = forms(param)[name]
+        _, _, _, _, wbytes = byte_gemm_forms(torch, param)[name]
         named = []
         for label, (K, N) in DECODE_SHAPES.items():
             p = pack(weights(K, N))
@@ -2613,6 +2658,162 @@ def decode_form_phases(torch, timer, failures, case_err):
                         ms=ms, plain_ms=plain_ms, library_ms=lib,
                         stream_ms=stream, bound_ms=b, bound_by=by)
             del p, w
+        for key in named:
+            rows[key]["max_abs_err"] = max_err
+    return rows, row_shapes
+
+
+# kernels 9 and 10's M > 8 rows: LLaMA-2 7B's qkv and down at the largest
+# prefill bucket (2048 tokens), qkv at one slot's 128-token prompt, and the
+# four shapes of the format arms' 8-slot prefill (8 x 128 tokens, M = 1024),
+# whose launches the rows carry
+TC_SHAPES = {"prefill": (2048, 4096, 12288),
+             "prefill_down": (2048, 11008, 4096),
+             "prefill_m128": (128, 4096, 12288),
+             "m1024_qkv": (1024, 4096, 12288),
+             "m1024_o": (1024, 4096, 4096),
+             "m1024_gate_up": (1024, 4096, 11008),
+             "m1024_down": (1024, 11008, 4096)}
+# kernels 9 and 10's M > 8 rows -> their (M, K, N), filled by tc_form_phases
+TC_ROW_SHAPES = {}
+# the M > 8 launches a prefill of the posit8/mx8 format arms makes: qkv,
+# o, gate, up and down in each layer (lm_head reads the last token alone)
+TC_PREFILL_GEMMS = 5
+
+
+def tc_form_phases(torch, timer, failures, case_err):
+    """Kernels 9 and 10 at M > 8, the wgmma form
+    (csrc/byte_storage_gemm.cuh:gemm_tc), beyond the cases they share with
+    the other storage GEMMs: the whole identity (M = K) bit-equal to the
+    plain version's bf16 weight at MX block sizes 8, 16, 24, 32, 64 and 128
+    (one scale row a k row below 64) and posit8 es 0, 1 and 2; ragged M
+    (9, 129, 1000) and a repeat at M=2048 bit for bit; odd N and codes
+    (and MX scales) past 16-byte alignment (the producer's lanes copy
+    them); a planted fault of each kernel at M=1000 (MX: one K block reads
+    its neighbour's scales; posit8: the most frequent code decodes as its
+    neighbour); then at TC_SHAPES (the main path's four prefill shapes
+    among them) a check and a timed row with the plain version, a bf16
+    matmul on the dequantized weight (library) and the reference's
+    fallback (dequantize to bf16, then one bf16 matmul).
+    Returns the kernel-table rows, whose max_abs_err also covers the shared
+    M > 8 cases (``case_err``), and each row's (M, K, N)."""
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    atol, rtol = 1e-4, 1e-2
+    rows, row_shapes = {}, {}
+    weights, offset_view, check = byte_gemm_helpers(torch, gen, failures,
+                                                    atol, rtol)
+
+    def randx(M, K):
+        return torch.randn((M, K), generator=gen, device=dev).to(bf16)
+
+    for name, params in (("mx_storage_matmul", (8, 16, 24, 32, 64, 128)),
+                         ("posit_storage_matmul", (0, 1, 2))):
+        mx_form = name.startswith("mx")
+        log(f"phase 2/3: {name}, wgmma form (M > 8; tolerance {atol} + "
+            f"{rtol}*|plain|, weights and repeats bit for bit)")
+        max_err = case_err.get(name, 0.0)
+        # the whole identity, M = K: every row of the weight
+        for param in params:
+            K, N = (4104 if mx_form and 4096 % param else 4096), 4096
+            pack, run, _, dequant, _ = byte_gemm_forms(torch, param)[name]
+            p = pack(weights(K, N))
+            eye = torch.eye(K, dtype=bf16, device=dev)
+            n_bad, where = bit_mismatches(run(eye, p), dequant(p))
+            what = "block size" if mx_form else "es"
+            log(f"  identity M=K={K} N={N}, {what} {param}: lanes that "
+                f"differ {n_bad} {where}")
+            if n_bad:
+                failures.append(f"{name} wgmma identity {what} {param}")
+            del p, eye
+        param = 64 if mx_form else 1
+        pack, run, plain, dequant, wbytes = byte_gemm_forms(torch,
+                                                            param)[name]
+        # ragged M, a repeat, the planted fault
+        K, N = 4096, 12288
+        p = pack(weights(K, N))
+        for M in (9, 129, 1000, 2048):
+            x = randx(M, K)
+            got = run(x, p)
+            max_err = max(max_err, check(f"{name} M={M} K={K} N={N}", got,
+                                         plain(x, p)))
+            if M == 2048:
+                n_bad, where = bit_mismatches(run(x, p), got)
+                log(f"  repeat M={M} K={K} N={N}: lanes that differ {n_bad} "
+                    f"{where}")
+                if n_bad:
+                    failures.append(f"{name} wgmma repeat")
+            if M != 1000:
+                continue
+            if mx_form:
+                scales_f = p[1].clone()
+                scales_f[10] = p[1][11]
+                planted_fault(f"{name} M={M}: K block 10 reads block 11's "
+                              "scales", got, plain(x, (p[0], scales_f)),
+                              atol, rtol, failures)
+            else:
+                c0 = int(torch.mode(p[0].flatten().cpu()).values)
+                codes_f = torch.where(p[0] == c0, c0 + 1, p[0]).to(p[0].dtype)
+                planted_fault(f"{name} M={M}: code {c0} decoded as code "
+                              f"{c0 + 1}", got, plain(x, (codes_f,)), atol,
+                              rtol, failures)
+        del p
+        # odd N, codes and scales past 16-byte alignment
+        for M, K, N in [(67, 4096, 4097), (130, 4096, 1000)]:
+            p = pack(weights(K, N))
+            x = randx(M, K)
+            want = plain(x, p)
+            max_err = max(max_err, check(f"{name} M={M} K={K} N={N}",
+                                         run(x, p), want))
+            views = [(f"codes {off} bytes past alignment",
+                      (offset_view(p[0], off),) + tuple(p[1:]))
+                     for off in (1, 4)]
+            if mx_form:
+                views.append(("scales 2 bytes past alignment",
+                              (p[0], offset_view(p[1], 2))))
+            for what, q in views:
+                max_err = max(max_err, check(
+                    f"{name} M={M} K={K} N={N}, {what}", run(x, q),
+                    want))
+
+        # the timed rows
+        src = name.replace("_matmul", "_matmul.cu")
+        tpu = "mx_storage.py:50" if mx_form else "posit_storage.py:39"
+        named = []
+        for label, (M, K, N) in TC_SHAPES.items():
+            p = pack(weights(K, N))
+            w = dequant(p)
+            x = randx(M, K)
+            max_err = max(max_err, check(f"{name} {label} M={M} K={K} N={N}",
+                                         run(x, p), plain(x, p)))
+            ms = timer(lambda: run(x, p))
+            plain_ms = timer(lambda: plain(x, p), reps=5)
+            lib = timer(lambda: torch.matmul(x, w))
+            fb = timer(lambda: torch.matmul(x, dequant(p)))
+            b, by = bound_ms(wbytes(K, N) + M * K * 2 + M * N * 2,
+                             2 * M * K * N)
+            log(f"  time {label} M={M} K={K} N={N}: kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} library_ms {lib:.4f} (bf16 matmul "
+                f"on the dequantized weight) fallback_ms {fb:.4f} "
+                f"(dequantize, then a bf16 matmul) bound_ms {b:.4f} ({by}); "
+                f"kernel at most fallback: {ms <= fb}")
+            key = f"{name}_{label}"
+            named.append(key)
+            row_shapes[key] = (M, K, N)
+            launches = (f"launches = the format arm's launches at M={M} "
+                        f"K={K} N={N} in its 8-slot prefill (2 layers, 8 x "
+                        "128 tokens)" + ("" if M == 1024 else ", so none: "
+                                         "that prefill runs M=1024"))
+            rows[key] = dict(
+                name=key, route="cuda",
+                source=f"quantized_training_torch/csrc/{src}",
+                replaces=f"quantized_training_tpu/ops/pallas/{tpu}",
+                shape=f"{label} M={M} K={K} N={N} (7B), gemm_tc; library = "
+                "bf16 torch.matmul on the dequantized weight; fallback = "
+                f"dequantize to bf16, then that matmul; {launches}",
+                ms=ms, plain_ms=plain_ms, library_ms=lib, fallback_ms=fb,
+                bound_ms=b, bound_by=by)
+            del p, w, x
         for key in named:
             rows[key]["max_abs_err"] = max_err
     return rows, row_shapes
@@ -3144,7 +3345,9 @@ def format_phase(torch, qt, case, phase="4b", params=None):
     plain path's cache and are fed its greedy token); then a prefill of 8
     slots and 6 decode steps on the card, the decode steps timed, with the
     launch counters around each (returned: metrics, decode counts, prefill
-    counts); for posit8 and mx8 one more decode step is traced.
+    counts); for posit8 and mx8 one more decode step is traced, and one
+    more prefill timed and traced, after a check that the prefill made its
+    M > 8 launches of kernel 9 or 10.
 
     The bound is the JAX suite's 0.15 + 0.05*|plain| elementwise, except
     for w8a8: its dynamic per-token int8 quantizer inside every GEMM turns
@@ -3222,6 +3425,8 @@ def format_phase(torch, qt, case, phase="4b", params=None):
         logits, caches = gpu(ids8, use_cache=True, prompt_len=S,
                              last_logit_only=True)
         prefill_counts = launch_counts()
+        # kernels 9 and 10's launches by (M, K, N)
+        prefill_counts["shapes"] = shape_launch_counts()
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times = []
         reset_launch_counts()
@@ -3252,6 +3457,36 @@ def format_phase(torch, qt, case, phase="4b", params=None):
             traced = {"wall_ms": ms, "busy_ms": prof["busy_ms"],
                       "idle_share": prof["idle_share"],
                       "storage_gemm_ms": prof["watched_ms"]["gemm_decode"]}
+    traced_prefill = None
+    if fmt in ("posit8", "mx8"):
+        # the prefill's M > 8 launches of kernel 9 or 10 (the wgmma form,
+        # bsg::gemm_tc): TC_PREFILL_GEMMS a layer; then one more prefill,
+        # timed, and one traced: gemm_tc beside the rest of the device's
+        # work
+        shapes = prefill_counts["shapes"][kernels[0]]
+        n_tc = sum(n for (m, _, _), n in shapes.items() if m > 8)
+        log(f"  8-slot prefill: {n_tc} M > 8 launches of {kernels[0]} "
+            f"({shapes})")
+        if n_tc != TC_PREFILL_GEMMS * cfg.num_hidden_layers:
+            fail(f"{label}: the prefill made {n_tc} M > 8 launches of "
+                 f"{kernels[0]}, not {TC_PREFILL_GEMMS} a layer")
+
+        def prefill():
+            with torch.no_grad():
+                gpu(ids8, use_cache=True, prompt_len=S, last_logit_only=True)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        prof = profile(torch, prefill, pre_ms, "8-slot prefill",
+                       watch=("bsg::gemm_tc",))
+        if prof:
+            traced_prefill = {
+                "wall_ms": pre_ms, "busy_ms": prof["busy_ms"],
+                "idle_share": prof["idle_share"],
+                "storage_gemm_ms": prof["watched_ms"]["bsg::gemm_tc"]}
     del gpu, caches, logits
     log(f"  decode, {B} slots: {ms:.3f} ms/step (median of "
         f"{[round(t, 3) for t in times]}), peak {peak:.2f} GiB; launches in "
@@ -3266,6 +3501,8 @@ def format_phase(torch, qt, case, phase="4b", params=None):
                "greedy_equal": tokens["kernel"] == tokens["plain"]}
     if traced:
         metrics["traced_decode_step"] = traced
+    if traced_prefill:
+        metrics["traced_prefill"] = traced_prefill
     return metrics, counts, prefill_counts
 
 
@@ -4572,6 +4809,15 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def run(fn, *args, **kw):
+        """fn(*args, **kw), then the seconds since the script started: the
+        script has 1200 s on the card, so each phase's share is printed"""
+        out = fn(*args, **kw)
+        log(f"[{time.perf_counter() - t_start:.0f} s] {fn.__name__} done")
+        return out
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's kernels need "
@@ -4604,59 +4850,76 @@ def main():
                                        "wgmma")):
                 log(f"    {line.strip()}")
     log(f"  build wall {time.perf_counter() - t0:.1f} s")
-    # kernels 1-4 and kernel 5 at M > 8 compute their products on the
-    # tensor cores: every kernel function of the two flash libraries, and
-    # the storage GEMM's w4_gemm_tc, holds wgmma (HGMMA) instructions;
-    # kernels 9 and 10 at M <= 8 (gemm_decode) hold mma.sync (HMMA) ones
-    need = {"flash_attn_fwd": ("", "HGMMA"), "flash_attn_bwd": ("", "HGMMA"),
-            "affine_w4_matmul": ("w4_gemm_tc", "HGMMA"),
-            "mx_storage_matmul": ("gemm_decode", "HMMA"),
-            "posit_storage_matmul": ("gemm_decode", "HMMA")}
-    for lib, (only, op) in need.items():
+    # ptxas serializes a wgmma it cannot prove safe (C7512: registers,
+    # C7513: a branch before its wait); the kernels on tma_pipe.cuh's k
+    # loop, kernel 5's w4_gemm_tc and kernels 9 and 10's bsg::gemm_tc, must
+    # carry neither
+    for name, fn in (("affine_w4_matmul", "w4_gemm_tc"),
+                     ("mx_storage_matmul", "7gemm_tc"),
+                     ("posit_storage_matmul", "7gemm_tc")):
+        for line in report.get(name, {}).get("log", "").splitlines():
+            if re.search(r"C751[23]", line) and fn in line:
+                fail(f"{name}: ptxas serialized {fn}'s wgmma: "
+                     f"{line.strip()}")
+    # kernels 1-4, kernel 5 at M > 8 and kernels 9 and 10 at M > 8
+    # compute their products on the tensor cores: every kernel function of
+    # the two flash libraries, the storage GEMM's w4_gemm_tc and the byte
+    # storage GEMMs' gemm_tc hold wgmma (HGMMA) instructions; kernels 9 and
+    # 10 at M <= 8 (gemm_decode) hold mma.sync (HMMA) ones
+    need = {"flash_attn_fwd": [("", "HGMMA")],
+            "flash_attn_bwd": [("", "HGMMA")],
+            "affine_w4_matmul": [("w4_gemm_tc", "HGMMA")],
+            "mx_storage_matmul": [("gemm_decode", "HMMA"),
+                                  ("7gemm_tc", "HGMMA")],
+            "posit_storage_matmul": [("gemm_decode", "HMMA"),
+                                     ("7gemm_tc", "HGMMA")]}
+    for lib, forms in need.items():
         for part in _cuda.sass(lib).split("Function : ")[1:]:
             fn = part.split("\n", 1)[0].strip()
-            if only not in fn:
-                continue
-            n_mma = {o: len(re.findall(rf"\b{o}\.", part))
-                     for o in ("HGMMA", "HMMA")}
-            log(f"  {lib} SASS, {fn[:70]}: {n_mma['HGMMA']} HGMMA and "
-                f"{n_mma['HMMA']} HMMA instructions")
-            if not n_mma[op]:
-                fail(f"{lib}: {fn} has no {op} instruction")
+            for only, op in forms:
+                if only not in fn:
+                    continue
+                n_mma = {o: len(re.findall(rf"\b{o}\.", part))
+                         for o in ("HGMMA", "HMMA")}
+                log(f"  {lib} SASS, {fn[:70]}: {n_mma['HGMMA']} HGMMA and "
+                    f"{n_mma['HMMA']} HMMA instructions")
+                if not n_mma[op]:
+                    fail(f"{lib}: {fn} has no {op} instruction")
 
     timer = Timer(torch)
-    rows = kernel_phases(torch, timer)
-    rows.update(rounding_kernel_phases(torch, timer))
-    rows.update(codebook_kernel_phases(torch, timer))
-    rows.update(training_kernel_phases(torch, timer))
-    rows.update(storage_kernel_phases(torch, timer))
-    rows.update(gqa_kernel_phases(torch, timer))
+    rows = run(kernel_phases, torch, timer)
+    rows.update(run(rounding_kernel_phases, torch, timer))
+    rows.update(run(codebook_kernel_phases, torch, timer))
+    rows.update(run(training_kernel_phases, torch, timer))
+    rows.update(run(storage_kernel_phases, torch, timer))
+    rows.update(run(gqa_kernel_phases, torch, timer))
     del timer
-    parity_phase(torch, qt)
+    run(parity_phase, torch, qt)
     formats, format_counts, prefill_counts = {}, {}, {}
     for case in FORMAT_CASES:
         formats[case[0]], format_counts[case[0]], prefill_counts[case[0]] = \
-            format_phase(torch, qt, case)
+            run(format_phase, torch, qt, case)
     cfg, _ = serving_config(qt, 2, geom="phi3")
     params = phi3_params(torch, qt, cfg, "w4a16")
     for case in PHI3_CASES:
         formats[case[0]], format_counts[case[0]], prefill_counts[case[0]] = \
-            format_phase(torch, qt, case, "4c", params)
+            run(format_phase, torch, qt, case, "4c", params)
     del params
     log("formats " + json.dumps(formats))
-    ladder_parity_phase(torch, qt)
-    ladder = ladder_phase(torch, qt)
-    train_parity_phase(torch, qt)
-    train_witness_phase(torch, qt)
-    train, train_bf16 = train_phase(torch, qt)
-    bert_parity_phase(torch, qt)
-    bert = bert_phase(torch, qt)
-    ptq_parity_phase(torch, qt)
-    ptq = ptq_presets_phase(torch, qt)
-    serving = serve_phase(torch, qt)
-    flagship = serve_phase(torch, qt, "kivi2", "serving_kivi")
-    phi3_kivi = serve_phase(torch, qt, "kivi2", "phi3_serving_kivi", "phi3")
-    phi3 = serve_phase(torch, qt, "int4", "phi3_serving", "phi3")
+    run(ladder_parity_phase, torch, qt)
+    ladder = run(ladder_phase, torch, qt)
+    run(train_parity_phase, torch, qt)
+    run(train_witness_phase, torch, qt)
+    train, train_bf16 = run(train_phase, torch, qt)
+    run(bert_parity_phase, torch, qt)
+    bert = run(bert_phase, torch, qt)
+    run(ptq_parity_phase, torch, qt)
+    ptq = run(ptq_presets_phase, torch, qt)
+    serving = run(serve_phase, torch, qt)
+    flagship = run(serve_phase, torch, qt, "kivi2", "serving_kivi")
+    phi3_kivi = run(serve_phase, torch, qt, "kivi2", "phi3_serving_kivi",
+                    "phi3")
+    phi3 = run(serve_phase, torch, qt, "int4", "phi3_serving", "phi3")
     # each kernel's launches in the main path that runs it: the flagship
     # serving run (slice 4: the w4 GEMM, flash prefill, the KIVI decode),
     # slice 1's serving run (the int4 decode), a format's 6 timed decode
@@ -4707,7 +4970,7 @@ def main():
     path["affine_w4_matmul_prefill_512"] = flagship
     path["affine_w4_matmul_prefill_phi3"] = phi3_kivi
     # kernels 9 and 10's rows: the launches at each row's own shape in the
-    # format phase's decode steps
+    # format phase's decode steps (M <= 8) or its 8-slot prefill (M > 8)
     storage_fmt = {"mx_storage_matmul": "mx8_kv4",
                    "posit_storage_matmul": "posit8_kv4"}
     # the w2 format's 8-slot prefill, which runs before its decode steps
@@ -4724,6 +4987,10 @@ def main():
             kernel = row["source"].rsplit("/", 1)[1][:-3]
             row["launches"] = format_counts[storage_fmt[kernel]]["shapes"][
                 kernel].get(DECODE_ROW_SHAPES[key], 0)
+        elif key in TC_ROW_SHAPES:
+            kernel = row["source"].rsplit("/", 1)[1][:-3]
+            row["launches"] = prefill_counts[storage_fmt[kernel]]["shapes"][
+                kernel].get(TC_ROW_SHAPES[key], 0)
         elif key == "flash_bwd_group":
             row["launches"] = sum(train[k] for k in (
                 "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"))

@@ -43,9 +43,7 @@
 //     once to bf16 (nearest even) and the tile is staged through shared
 //     memory for coalesced rows of y.
 
-#include <cuda.h>
-#include <dlfcn.h>
-
+#include "tma_pipe.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -160,14 +158,10 @@ w4_gemm_small_m(const uint16_t* __restrict__ x,
 // the lanes' copies took 9-21% longer (PERF.md).  Full and empty
 // mbarriers pass the stages between the producer and the consumers, which
 // issue no copies: a first version whose consumers issued the copies ran
-// its products at about half the rate (PERF.md).
-constexpr int TC_CONSUMERS = 256;       // two consumer warpgroups
-constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and the producer warp
-constexpr int TC_BN = 128;              // output columns per block
-constexpr int TC_BK = 64;               // k per step
+// its products at about half the rate (PERF.md).  The consumers' k loop and
+// output staging are tma_pipe.cuh's tc_consume and tc_store.
 constexpr int TC_STAGES = 4;
 constexpr int TC_COL_BYTES = TC_BN * 4; // one smem row of words or qparams
-constexpr int OUT_STRIDE = TC_BN + 8;   // bf16 per staged output row
 
 template <int NBITS, int BM, bool ONE_GROUP>
 struct TcLayout {
@@ -179,77 +173,10 @@ struct TcLayout {
   static constexpr int Q_BYTES = QR * TC_COL_BYTES;  // sf, and again zp
   static constexpr int WQ_BYTES = W_BYTES + 2 * Q_BYTES;
   static constexpr int RING = TC_STAGES * (X_BYTES + WQ_BYTES);
-  static constexpr int OUT = BM * OUT_STRIDE * 2;
+  static constexpr int OUT = BM * TC_OUT_STRIDE * 2;
   static constexpr int BARS = (RING > OUT ? RING : OUT);  // then 2 x STAGES
   static constexpr int SMEM_BYTES = 1024 + BARS + 2 * TC_STAGES * 8;
 };
-
-// ---- mbarriers --------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// waits until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// an arrival where pred holds, as a predicated instruction: a branch
-// between a wgmma and its wait makes ptxas serialize the products
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 st;\n"
-      "setp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar),
-      "r"(static_cast<int>(pred))
-      : "memory");
-}
-
-// one arrival on bar once this thread's cp.async copies so far have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// one more arrival on bar, which also awaits bytes of asynchronous copies
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// TMA: the 2-D box of map at (c0, c1), innermost first, into shared memory
-// at dst, its bytes counted on bar; the box's part outside the tensor reads
-// as zero
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// the consumers' own barrier (named barrier 1), without the producer warp
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
-}
 
 // w = bf16((c - zp) * sf) for the codes at bits b.. of t, as dequant<NBITS>:
 // the field, its top bit flipped (c = centered + MID), is OR'd into the
@@ -345,15 +272,9 @@ w4_gemm_tc(const __grid_constant__ CUtensorMap x_map,
   const int m0 = blockIdx.y * BM;
   const int nsteps = (K + TC_BK - 1) / TC_BK;
 
-  if (tid == 0) {
-    for (int s = 0; s < TC_STAGES; ++s) {
-      // the TMA copies, and the 32 lanes' cp.async copies unless TMA
-      // brings the words and qparams too
-      mbar_init(full + 8 * s, tma_wq ? 1 : 33);
-      mbar_init(empty + 8 * s, TC_CONSUMERS / 32);  // one a consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  // full: the TMA copies, and the 32 lanes' cp.async copies unless TMA
+  // brings the words and qparams too
+  if (tid == 0) tc_init_barriers(full, empty, TC_STAGES, tma_wq ? 1 : 33);
   __syncthreads();
 
   if (tid >= TC_CONSUMERS) {
@@ -406,146 +327,50 @@ w4_gemm_tc(const __grid_constant__ CUtensorMap x_map,
   const int q = lane & 3;
   // this thread's A rows: output columns col_a and col_a + 8 of the block
   const int col_a = (tid >> 7) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-  uint32_t frag[2][4];  // the A registers of two k steps
-
-  for (int t = 0; t < nsteps; ++t) {
-    const int st = t % TC_STAGES;
-    mbar_wait(full + 8 * st, (t / TC_STAGES) & 1);
-    const uint32_t xs = x_s + st * L::X_BYTES;
+  // the stage's words of both columns, read before its first dequant; its
+  // qparams are read again each k step: held across the stage, the one
+  // group's made ptxas serialize the 256-token forms' products (C7512)
+  uint32_t wv[L::WR][2];
+  const float *ss = nullptr, *zs = nullptr;
+  auto load = [&](int st) {
     const uint8_t* wq = smem + TC_STAGES * L::X_BYTES + st * L::WQ_BYTES;
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(wq);
-    const float* ss = reinterpret_cast<const float*>(wq + L::W_BYTES);
-    const float* zs = ss + L::QR * TC_BN;
-    float s_a = 0.f, z_a = 0.f, s_b = 0.f, z_b = 0.f;
-    if (ONE_GROUP) {
-      s_a = ss[col_a];
-      z_a = zs[col_a];
-      s_b = ss[col_a + 8];
-      z_b = zs[col_a + 8];
-    }
-    // the step's words of both columns, read before the first dequant
-    uint32_t wv[L::WR][2];
+    ss = reinterpret_cast<const float*>(wq + L::W_BYTES);
+    zs = ss + L::QR * TC_BN;
 #pragma unroll
     for (int wr = 0; wr < L::WR; ++wr) {
       wv[wr][0] = ws[wr * TC_BN + col_a];
       wv[wr][1] = ws[wr * TC_BN + col_a + 8];
     }
+  };
+  auto frag = [&](int kk, uint32_t(&a)[4]) {
+    if (NBITS == 4) {
+      // k 2q, 2q+1 in word row 2kk, k 2q+8, 2q+9 in word row 2kk+1
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      uint32_t(&a)[4] = frag[kk & 1];
-      if (NBITS == 4) {
-        // k 2q, 2q+1 in word row 2kk, k 2q+8, 2q+9 in word row 2kk+1
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int wr = 2 * kk + h;
-          const int qa = ONE_GROUP ? 0 : wr;
-#pragma unroll
-          for (int ab = 0; ab < 2; ++ab) {
-            const int c = col_a + 8 * ab;
-            const float s = ONE_GROUP ? (ab ? s_b : s_a) : ss[qa * TC_BN + c];
-            const float z = ONE_GROUP ? (ab ? z_b : z_a) : zs[qa * TC_BN + c];
-            a[2 * h + ab] = deq4_pair(wv[wr][ab], q, z, s);
-          }
-        }
-      } else {
-        // k 2q, 2q+1, 2q+8, 2q+9 in word row kk
-        const int qa = ONE_GROUP ? 0 : kk;
+      for (int h = 0; h < 2; ++h) {
+        const int wr = 2 * kk + h;
+        const int qa = ONE_GROUP ? 0 : wr;
 #pragma unroll
         for (int ab = 0; ab < 2; ++ab) {
-          const int c = col_a + 8 * ab;
-          const float s = ONE_GROUP ? (ab ? s_b : s_a) : ss[qa * TC_BN + c];
-          const float z = ONE_GROUP ? (ab ? z_b : z_a) : zs[qa * TC_BN + c];
-          deq2_quad(wv[kk][ab], q, z, s, a[ab], a[2 + ab]);
+          const int c = qa * TC_BN + col_a + 8 * ab;
+          a[2 * h + ab] = deq4_pair(wv[wr][ab], q, zs[c], ss[c]);
         }
       }
-      fence_regs(acc);
-      wg_fence();
-      wgmma_rs_kmajor(acc, a, kmajor_desc<BM>(xs, kk));
-      wg_commit();
-      fence_regs(acc);
-      // the previous k step's product is done: its A registers may be
-      // written again
-      wg_wait<1>();
-      fence_regs(frag);
-      // and so is every product of step t - 1: its stage goes back, one
-      // arrival a warp (256 arrivals a step slowed the products)
-      if (kk == 0)
-        mbar_arrive_if(empty + 8 * ((t + TC_STAGES - 1) % TC_STAGES),
-                       lane == 0 && t > 0);
-    }
-  }
-  wg_wait<0>();
-  fence_regs(acc);
-  fence_regs(frag);
-
-  // y^T fragment -> staged [token][column] bf16 tile -> coalesced rows of y
-  consumers_sync();  // both warpgroups are done with the ring
-  uint16_t* out = reinterpret_cast<uint16_t*>(smem);
-#pragma unroll
-  for (int i = 0; i < NACC; i += 2) {
-    const int tok = 8 * (i >> 2) + 2 * q;
-    const int col = col_a + 8 * ((i >> 1) & 1);
-    const uint32_t v = pack_bf16(acc[i], acc[i + 1]);
-    out[tok * OUT_STRIDE + col] = static_cast<uint16_t>(v & 0xffffu);
-    out[(tok + 1) * OUT_STRIDE + col] = static_cast<uint16_t>(v >> 16);
-  }
-  consumers_sync();
-  for (int c = tid; c < BM * (TC_BN / 8); c += TC_CONSUMERS) {
-    const int r = c / (TC_BN / 8), cc = c % (TC_BN / 8);
-    const int m = m0 + r, n = n0 + 8 * cc;
-    if (m >= M || n >= N) continue;
-    const uint16_t* o = out + r * OUT_STRIDE + 8 * cc;
-    uint16_t* dst = y + static_cast<size_t>(m) * N + n;
-    if ((N & 7) == 0) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
     } else {
-      for (int j = 0; j < 8 && n + j < N; ++j) dst[j] = o[j];
+      // k 2q, 2q+1, 2q+8, 2q+9 in word row kk
+      const int qa = ONE_GROUP ? 0 : kk;
+#pragma unroll
+      for (int ab = 0; ab < 2; ++ab) {
+        const int c = qa * TC_BN + col_a + 8 * ab;
+        deq2_quad(wv[kk][ab], q, zs[c], ss[c], a[ab], a[2 + ab]);
+      }
     }
-  }
-}
-
-// cuTensorMapEncodeTiled, looked up in the libcuda the process has
-// loaded (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// a row-major (rows, cols) tensor of elem-byte values as box_cols x
-// box_rows boxes
-cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
-                       const void* base, int cols, int rows, int elem,
-                       int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+  };
+  float acc[NACC];
+  tc_consume<BM, TC_STAGES>(acc, full, empty, x_s, L::X_BYTES, nsteps, lane,
+                            load, frag);
+  tc_store<BM, 8>(acc, reinterpret_cast<uint16_t*>(smem), y, col_a, q, tid,
+                  m0, n0, M, N);
 }
 
 template <int NBITS, int BM, bool ONE_GROUP>
@@ -609,11 +434,8 @@ cudaError_t launch_tc_tile(const uint16_t* x, const int32_t* codes,
   return cudaErrorInvalidValue;
 }
 
-// Token tile: as narrow as M allows, and 256 (half the dequant a product)
-// where its blocks still cover half the SMs
+// the token tile on this card (tma_pipe.cuh:pick_tile_m)
 int pick_tile_m(int M, int N) {
-  if (M <= 64) return 64;
-  if (M <= 128) return 128;
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -622,9 +444,7 @@ int pick_tile_m(int M, int N) {
             cudaSuccess)
       sms = 132;
   }
-  const long blocks = static_cast<long>((N + TC_BN - 1) / TC_BN) *
-                      ((M + 255) / 256);
-  return 2 * blocks >= sms ? 256 : 128;
+  return pick_tile_m(M, N, TC_BN, sms);
 }
 
 }  // namespace

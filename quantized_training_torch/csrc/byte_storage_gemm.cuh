@@ -44,22 +44,39 @@
 //   * The dequant is the work that competes with the stream: about 3.6
 //     (MX) and 3.9 (posit8) instructions a weight, much of it on the
 //     integer pipe; the decoders' notes say how each weight is made.
-// M > 8 (gemm_tiled, CUDA cores): a 64x64 output tile per block, K walked 64
-// rows at a time; the code tile is decoded once into shared memory and
-// reused by all 64 rows; each thread accumulates a 4x4 tile with CUDA-core
-// FMAs.  It also serves M <= 8 where the decoder refuses the decode form.
+// M > 8 (gemm_tc, tensor cores): y^T = W^T x^T on wgmma m64nBMk16, the
+// weight dequantized in registers straight into the A operand and x, the
+// K-major B operand, brought by TMA; the structure of kernel 5's
+// w4_gemm_tc (affine_w4_matmul.cu) with the byte decoders in place of its
+// word unpacking.
+//   * A block owns 128 output columns and BM tokens (64, 128 or 256,
+//     tma_pipe.cuh:pick_tile_m); two consumer warpgroups of 64 columns and
+//     a producer warp pass a ring of 64-deep k stages (as many as fit, at
+//     most four) through full and empty mbarriers.  A stage holds the x
+//     tile and the code tile (64 rows of 128 bytes), both by TMA in the
+//     128-byte swizzle, and for MX the scale rows: one a stage (by TMA)
+//     where the block size is a multiple of 64, else one a k row, copied
+//     by the producer's lanes.  Codes that are not 16-byte aligned or N %
+//     16 != 0 are copied by the lanes' plain loads.
+//   * A thread's A rows a and a + 8 are the adjacent output columns col and
+//     col + 1, so one 16-bit read of a code row gives both columns' codes
+//     and one 32-bit read of a scale row both scales; the swizzle keeps the
+//     reads of a warp's four k rows in distinct banks.  The A registers are
+//     double-buffered and wgmma.wait_group leaves one product in flight, so
+//     one k step's dequant overlaps the product before it.  Each f32 sum is
+//     rounded once to bf16 (nearest even) and the tile is staged through
+//     shared memory, the column permutation undone, for coalesced rows of
+//     y.  It also serves M <= 8 where the decoder refuses the decode form
+//     (TMA reads the rows past M as zero).
 //
-// A decoder is a struct with, for gemm_tiled, `setup(float* table)`, run by
-// every block before the first decode (it may fill the 256-float shared
-// table and must end in __syncthreads if it does), and `float
-// operator()(int code, int k, int n, const float* table)`; and, for
-// gemm_decode, `kTable` (a 256-entry table of `entry(i)` values, one copy a
-// lane), `kScales` (bf16 scale rows `scales`, one per `bs` rows of K, to be
-// streamed beside the codes), `bool decode_ok() const`, `uint32_t
-// aux(uint32_t lane_table) const` (a register the decode keeps: the lane's
-// table address, or a constant) and `void pairs(...)`, which makes the A
-// registers of one mma from the four code rows and the scale words of
-// their two 8-row halves (see PositDecoder and MxDecoder).
+// A decoder is a struct with `kTable` (a 256-entry table of `entry(i)`
+// values, one copy a lane), `kScales` (bf16 scale rows `scales`, one per
+// `bs` rows of K, to be streamed beside the codes), `bool decode_ok()
+// const`, `uint32_t aux(uint32_t lane_table) const` (a register the decode
+// keeps: the lane's table address, or a constant), and two functions that
+// make A registers from code bytes and the scale words of their rows:
+// `pairs(...)` those of one gemm_decode mma, `tc_frag(...)` those of one
+// gemm_tc k step (see PositDecoder and MxDecoder).
 
 #pragma once
 
@@ -68,13 +85,10 @@
 
 #include <algorithm>
 
+#include "tma_pipe.cuh"
 #include "wgmma_tile.cuh"
 
 namespace bsg {
-
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
 
 __device__ __forceinline__ float round_bf16(float v) {
   uint32_t u = __float_as_uint(v);
@@ -374,90 +388,310 @@ gemm_decode(const uint16_t* __restrict__ x, const int8_t* __restrict__ codes,
   }
 }
 
-// ---- M > 8 ----------------------------------------------------------------
-constexpr int TB_M = 64;
-constexpr int TB_N = 64;
-constexpr int TB_K = 64;
-constexpr int TB_THREADS = 256;
+// ---- M > 8: tensor cores (wgmma) ------------------------------------------
+// y^T = W^T x^T per block of TC_BN output columns x BM tokens: each of two
+// consumer warpgroups owns 64 columns and runs wgmma m64nBMk16 with the
+// dequantized weight tile (64 columns x 16 k) as the A operand in registers
+// and the x tile (BM tokens x 64 k, K-major as x lies in memory, 128-byte
+// swizzle) as the B operand in shared memory.  A producer warp fills a ring
+// of 64-deep k stages: the x tile and the code tile (64 rows x 128 columns,
+// the same swizzle) by TMA, and the MX scale rows by TMA too where one row
+// serves the stage; the rest by its lanes (see gemm_tc).  Full and empty
+// mbarriers pass the stages between the producer and the consumers, whose
+// k loop and output staging are tma_pipe.cuh's tc_consume and tc_store.
+constexpr int TC_CODES = TC_BK * TC_BN;        // code bytes a stage
+constexpr int TC_SROW = 2 * TC_BN + 16;        // smem bytes a scale row of
+                                               // the per-row form (padded)
+constexpr int TC_MAX_STAGES = 4;
+constexpr int TC_SMEM_LIMIT = 232448;          // a block's shared memory
 
-template <class Dec>
-__global__ void __launch_bounds__(TB_THREADS)
-gemm_tiled(const uint16_t* __restrict__ x, const int8_t* __restrict__ codes,
-           Dec dec, uint16_t* __restrict__ y, int M, int K, int N) {
-  __shared__ float table[256];
-  __shared__ __align__(16) float xs[TB_K][TB_M];  // x tile, k-major
-  __shared__ __align__(16) float ws[TB_K][TB_N];  // decoded weights
-  dec.setup(table);
+// gemm_tc's shared memory (1024-byte aligned): a ring of stages, each the x
+// tile, the code tile and SR MX scale rows (0: none; 1: the row of the
+// stage, in a 1024-byte slot; TC_BK: one padded row a k row), as many
+// stages as fit, at most four; then the posit8 decode table (one copy a
+// lane) and the full and empty barriers.  The staged output tile reuses
+// the ring.
+template <class Dec, int BM, int SR>
+struct TcLayout {
+  static constexpr int X = BM * ROW_BYTES;  // a multiple of 1024
+  static constexpr int SCALES = SR == 0 ? 0 : SR == 1 ? 1024 : SR * TC_SROW;
+  static constexpr int STEP = X + TC_CODES + SCALES;
+  static constexpr int TABLE = Dec::kTable ? DC_TABLE * 4 : 0;
+  static constexpr int FIXED = 1024 + TABLE + 2 * TC_MAX_STAGES * 8;
+  static constexpr int STAGES =
+      std::min(TC_MAX_STAGES, (TC_SMEM_LIMIT - FIXED) / STEP);
+  static constexpr int OUT = BM * TC_OUT_STRIDE * 2;
+  static constexpr int BODY = std::max(STAGES * STEP, OUT);
+  static constexpr int SMEM = 1024 + BODY + TABLE + 2 * STAGES * 8;
+  static_assert(STEP % 1024 == 0 && STAGES >= 2, "stage layout");
+};
+
+// byte offset of (row r, byte c) in a tile of 128-byte rows in the 128-byte
+// swizzle (16-byte chunk c / 16 of row r at (c / 16) ^ (r % 8))
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
+}
+
+// Code rows k0.. of columns n0.. into a stage's swizzled code tile, by the
+// producer's 32 lanes with plain loads (4 columns a lane, 8 rows in flight),
+// zero past K and N: where TMA cannot bring them (the codes not 16-byte
+// aligned, N % 16 != 0).
+__device__ __forceinline__ void copy_codes(uint8_t* tile,
+                                           const int8_t* __restrict__ codes,
+                                           int k0, int n0, int K, int N,
+                                           int lane) {
+  const int c = 4 * lane, n = n0 + c;
+#pragma unroll 1
+  for (int r0 = 0; r0 < TC_BK; r0 += 8) {
+    uint32_t w[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = k0 + r0 + i;
+      const int8_t* src = codes + static_cast<size_t>(k) * N + n;
+      uint32_t v = 0u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (k < K && n + b < N)
+          v |= static_cast<uint32_t>(static_cast<uint8_t>(src[b])) << (8 * b);
+      w[i] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint32_t*>(tile + swz128(r0 + i, c)) = w[i];
+  }
+}
+
+// A stage's MX scale rows of columns n0.., by the producer's lanes, zero
+// past K and N: SR == 1 the scale row of k0 (where TMA cannot bring it),
+// SR == TC_BK row r the scale row of k row k0 + r.  16-byte cp.async copies
+// where vec (the scales 16-byte aligned, N % 8 == 0), else plain loads.
+template <int SR>
+__device__ __forceinline__ void copy_scales(uint8_t* rows, uint32_t rows_s,
+                                            const uint16_t* __restrict__ scales,
+                                            int bs, int k0, int n0, int K,
+                                            int N, int lane, bool vec) {
+  constexpr int STRIDE = SR == 1 ? 0 : TC_SROW;
+  if (vec) {
+    // 16 chunks of 8 columns a row: chunk lane % 16 of rows lane / 16 + 2i
+    const int c = 8 * (lane & 15), n = n0 + c;
+#pragma unroll 4
+    for (int i = lane >> 4; i < SR; i += 2) {
+      const int k = k0 + (SR == 1 ? 0 : i);
+      const bool ok = k < K && n < N;
+      cp_async16(rows_s + i * STRIDE + 2 * c,
+                 ok ? scales + static_cast<size_t>(k / bs) * N + n : scales,
+                 ok);
+    }
+  } else {
+    const int c = 4 * lane, n = n0 + c;  // 4 columns a lane
+#pragma unroll 8
+    for (int i = 0; i < SR; ++i) {
+      const int k = k0 + (SR == 1 ? 0 : i);
+      const uint16_t* src = scales + static_cast<size_t>(k / bs) * N + n;
+      uint32_t w[2] = {0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k < K && n + e < N)
+          w[e >> 1] |= static_cast<uint32_t>(src[e]) << (16 * (e & 1));
+      *reinterpret_cast<uint2*>(rows + i * STRIDE + 2 * c) =
+          make_uint2(w[0], w[1]);
+    }
+  }
+}
+
+// The A fragment wants, for each of a thread's two A rows (a = 16 w + g
+// and a + 8 of its warpgroup's 64; w its warp, g = lane / 4, q = lane % 4),
+// the weights at k 2q, 2q+1, 2q+8 and 2q+9 of a 16-deep step.  A row a is
+// output column col = 16 w + 2g of the warpgroup's 64 and a + 8 is col + 1,
+// so the two columns' codes of one k row are one 16-bit read of the code
+// tile (the swizzle spreads the four rows 2q of a warp over four chunks:
+// no bank conflict), and their MX scales one 32-bit read of a scale row.
+// The output staging undoes the permutation.
+template <class Dec, int BM, int SR>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+gemm_tc(const __grid_constant__ CUtensorMap x_map,
+        const __grid_constant__ CUtensorMap c_map,
+        const __grid_constant__ CUtensorMap s_map,
+        const int8_t* __restrict__ codes, Dec dec, uint16_t* __restrict__ y,
+        int M, int K, int N, int tma_codes, int tma_scales) {
+  using L = TcLayout<Dec, BM, SR>;
+  constexpr int NACC = BM / 2;  // accumulator floats a thread: 64 x BM / 128
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t table = base + L::BODY;
+  const uint32_t full = table + L::TABLE;  // L::STAGES barriers, then empty
+  const uint32_t empty = full + L::STAGES * 8;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns 4*tx .. 4*tx+3
-  const int ty = tid / 16;  // output rows 4*ty .. 4*ty+3
-  const int m0 = blockIdx.y * TB_M;
-  const int n0 = blockIdx.x * TB_N;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.y * BM;
+  const int nsteps = (K + TC_BK - 1) / TC_BK;
+  // what TMA does not bring, the producer's lanes copy
+  bool lanes = !tma_codes;
+  if constexpr (Dec::kScales) lanes = lanes || !tma_scales;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // full: TMA's arrival, and the lanes'
+  if (tid == 0) tc_init_barriers(full, empty, L::STAGES, lanes ? 33 : 1);
+  if constexpr (Dec::kTable) {
+    // the decode table, one copy a lane (word e * 32 + lane holds entry e),
+    // so that 32 lanes looking up 32 codes hit 32 banks
+    float* t = reinterpret_cast<float*>(smem + L::BODY);
+    if (tid < 256) t[tid * 32] = dec.entry(tid);
+    __syncthreads();
+    for (int w = tid; w < DC_TABLE; w += TC_THREADS)
+      if (w & 31) t[w] = t[w & ~31];
+  }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < K; k0 += TB_K) {
-    // x tile: 64 rows x 64 k, 16 values per thread (two 16-byte loads)
-    {
-      const int row = tid / 4;
-      const int kc = (tid % 4) * 16;
-      const int m = m0 + row;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = k0 + kc + 8 * h;
-        uint4 xv = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M && k < K)
-          xv = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + k);
-        const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          xs[kc + 8 * h + 2 * q][row] = bf16_bits_to_float(xw[q] & 0xffffu);
-          xs[kc + 8 * h + 2 * q + 1][row] = bf16_bits_to_float(xw[q] >> 16);
-        }
+  if (tid >= TC_CONSUMERS) {
+    // the producer: the x tile (rows past M and k past K read as zero) and
+    // the codes by TMA where tma_codes, the MX scale row by TMA where
+    // tma_scales; the rest by the lanes, whose arrival waits for their
+    // cp.async copies or, after plain stores, follows them
+    bool vec_scales = false;
+    if constexpr (Dec::kScales)
+      vec_scales = (reinterpret_cast<uintptr_t>(dec.scales) & 15) == 0 &&
+                   (N & 7) == 0;
+    const bool async_only = tma_codes && vec_scales;
+    for (int t = 0; t < nsteps; ++t) {
+      const int st = t % L::STAGES;
+      if (t >= L::STAGES) mbar_wait(empty + 8 * st, (t / L::STAGES - 1) & 1);
+      const int k0 = t * TC_BK;
+      const uint32_t xs = base + st * L::STEP;
+      const uint32_t bar = full + 8 * st;
+      if (lane == 0) {
+        mbar_expect_tx(bar, L::X + (tma_codes ? TC_CODES : 0) +
+                                (tma_scales ? 2 * TC_BN : 0));
+        tma_load_2d(xs, &x_map, k0, m0, bar);
+        if (tma_codes) tma_load_2d(xs + L::X, &c_map, n0, k0, bar);
+        if constexpr (Dec::kScales)
+          if (tma_scales)
+            tma_load_2d(xs + L::X + TC_CODES, &s_map, n0, k0 / dec.bs, bar);
+      }
+      if (!lanes) continue;
+      uint8_t* stage = smem + st * L::STEP;
+      if (!tma_codes) copy_codes(stage + L::X, codes, k0, n0, K, N, lane);
+      if constexpr (Dec::kScales)
+        if (!tma_scales)
+          copy_scales<SR>(stage + L::X + TC_CODES, xs + L::X + TC_CODES,
+                          dec.scales, dec.bs, k0, n0, K, N, lane, vec_scales);
+      if (async_only) {
+        cp_async_arrive(bar);
+      } else {
+        cp_async_wait<0>();
+        mbar_arrive(bar);
       }
     }
-    // code tile: 64 rows x 64 columns, 16 codes per thread
-    {
-      const int kk = tid / 4;
-      const int c0 = (tid % 4) * 16;
-      const int k = k0 + kk;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int n = n0 + c0 + j;
-        ws[kk][c0 + j] = (k < K && n < N)
-            ? dec(codes[static_cast<size_t>(k) * N + n], k, n, table) : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < TB_K; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
+    cp_async_wait<0>();
+    return;
   }
 
+  const int q = lane & 3;
+  // this thread's A rows a and a + 8: output columns col and col + 1
+  const int col = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + 2 * (lane >> 2);
+  const uint32_t aux = dec.aux(table + 4 * lane);
+  // the stage's codes of both columns, read before its first dequant:
+  // cw[2kk] holds k rows 16kk + 2q (bytes 0, 1: col, col + 1) and
+  // 16kk + 2q + 1 (bytes 2, 3), cw[2kk + 1] rows 16kk + 2q + 8 and + 9
+  uint32_t cw[8];
+  const uint8_t* ss = nullptr;  // the stage's scale rows
+  auto load = [&](int st) {
+    const uint8_t* cs = smem + st * L::STEP + L::X;
+    ss = cs + TC_CODES;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n < N) y[static_cast<size_t>(m) * N + n] = float_to_bf16_bits(acc[i][j]);
+    for (int h = 0; h < 8; ++h) {
+      const int r = 8 * h + 2 * q;
+      const uint32_t lo =
+          *reinterpret_cast<const uint16_t*>(cs + swz128(r, col));
+      const uint32_t hi =
+          *reinterpret_cast<const uint16_t*>(cs + swz128(r + 1, col));
+      cw[h] = lo | (hi << 16);
     }
+  };
+  auto frag = [&](int kk, uint32_t(&a)[4]) {
+    // both columns' scales, one row for the stage, read again each k step:
+    // held across the stage they made ptxas serialize the 256-token form's
+    // products (C7512)
+    uint32_t s_all = 0u;
+    if constexpr (SR == 1)
+      s_all = *reinterpret_cast<const uint32_t*>(ss + 2 * col);
+    if constexpr (SR == TC_BK) {
+      const uint8_t* sp = ss + (16 * kk + 2 * q) * TC_SROW + 2 * col;
+      dec.tc_frag(cw[2 * kk], cw[2 * kk + 1],
+                  *reinterpret_cast<const uint32_t*>(sp),
+                  *reinterpret_cast<const uint32_t*>(sp + TC_SROW),
+                  *reinterpret_cast<const uint32_t*>(sp + 8 * TC_SROW),
+                  *reinterpret_cast<const uint32_t*>(sp + 9 * TC_SROW), aux, a);
+    } else {
+      dec.tc_frag(cw[2 * kk], cw[2 * kk + 1], s_all, s_all, s_all, s_all, aux,
+                  a);
+    }
+  };
+  float acc[NACC];
+  tc_consume<BM, L::STAGES>(acc, full, empty, base, L::STEP, nsteps, lane,
+                            load, frag);
+  // the permutation of the columns undone: a thread's two columns are
+  // adjacent
+  tc_store<BM, 1>(acc, reinterpret_cast<uint16_t*>(smem), y, col, q, tid, m0,
+                  n0, M, N);
+}
+
+template <class Dec, int BM, int SR>
+cudaError_t launch_tc(const uint16_t* x, const int8_t* codes, const Dec& dec,
+                      uint16_t* y, int M, int K, int N, cudaStream_t s) {
+  using L = TcLayout<Dec, BM, SR>;
+  // x (M, K) as BM x 64 boxes in the 128-byte swizzle wgmma reads
+  CUtensorMap x_map, c_map, s_map;
+  cudaError_t err = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
+                               K, M, 2, TC_BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  c_map = s_map = x_map;
+  // the codes as 64-row boxes of TC_BN bytes in the same swizzle, where
+  // their rows are 16-byte aligned
+  const int tma_codes =
+      (reinterpret_cast<uintptr_t>(codes) & 15) == 0 && N % 16 == 0;
+  if (tma_codes &&
+      (err = tensor_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, K, 1,
+                        TC_BN, TC_BK, CU_TENSOR_MAP_SWIZZLE_128B)) !=
+          cudaSuccess)
+    return err;
+  // the stage's scale row as a box of TC_BN values, where one row serves
+  // the stage and the rows are 16-byte aligned
+  int tma_scales = 0;
+  if constexpr (Dec::kScales) {
+    tma_scales = SR == 1 &&
+                 (reinterpret_cast<uintptr_t>(dec.scales) & 15) == 0 &&
+                 N % 8 == 0;
+    if (tma_scales &&
+        (err = tensor_map(&s_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          dec.scales, N, K / dec.bs, 2, TC_BN, 1,
+                          CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
+      return err;
+  }
+  auto kern = gemm_tc<Dec, BM, SR>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + BM - 1) / BM);
+  kern<<<grid, TC_THREADS, L::SMEM, s>>>(x_map, c_map, s_map, codes, dec, y,
+                                          M, K, N, tma_codes, tma_scales);
+  return cudaGetLastError();
+}
+
+template <class Dec, int SR>
+cudaError_t launch_tc_tile(const uint16_t* x, const int8_t* codes,
+                           const Dec& dec, uint16_t* y, int M, int K, int N,
+                           int sms, cudaStream_t s) {
+  switch (pick_tile_m(M, N, TC_BN, sms)) {
+    case 64:
+      return launch_tc<Dec, 64, SR>(x, codes, dec, y, M, K, N, s);
+    case 128:
+      return launch_tc<Dec, 128, SR>(x, codes, dec, y, M, K, N, s);
+    default:
+      return launch_tc<Dec, 256, SR>(x, codes, dec, y, M, K, N, s);
   }
 }
 
@@ -477,11 +711,12 @@ cudaError_t launch_decode(const uint16_t* x, const int8_t* codes,
 }
 
 // x (M, K) bf16 16-byte aligned, codes (K, N) int8, y (M, N) bf16, all
-// contiguous, K % 8 == 0.  Where decode_plan(dec, M, K, N, sms) gives
-// splits > 1, `part` must hold its part_floats floats (any contents) and
-// `count` its counters ints, zero (each call leaves them zero); the
-// capacities say how much each holds, and a launch that would need more
-// is refused.
+// contiguous, K % 8 == 0; `sms` the card's SM count.  The decode form runs
+// where decode_plan(dec, M, K, N, sms) gives splits > 0, gemm_tc
+// elsewhere.  Where the plan gives splits > 1, `part` must hold its
+// part_floats floats (any contents) and `count` its counters ints, zero
+// (each call leaves them zero); the capacities say how much each holds,
+// and a launch that would need more is refused.
 template <class Dec>
 int launch(const void* x, const void* codes, const Dec& dec, void* y,
            void* part, int part_floats, void* count, int counters, int M,
@@ -510,11 +745,16 @@ int launch(const void* x, const void* codes, const Dec& dec, void* y,
                                   plan.splits, s);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
-    dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
-    gemm_tiled<Dec><<<grid, TB_THREADS, 0, s>>>(xp, cp, dec, yp, M, K, N);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if constexpr (Dec::kScales)
+    err = dec.bs % TC_BK
+        ? launch_tc_tile<Dec, TC_BK>(xp, cp, dec, yp, M, K, N, sms, s)
+        : launch_tc_tile<Dec, 1>(xp, cp, dec, yp, M, K, N, sms, s);
+  else
+    err = launch_tc_tile<Dec, 0>(xp, cp, dec, yp, M, K, N, sms, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace bsg

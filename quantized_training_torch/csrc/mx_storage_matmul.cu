@@ -17,10 +17,12 @@
 // of the mantissa of 2^15, so the float is 32768 + 128 + code, and
 // fma(that, s, -32896 s) is code * s exactly (a 16-bit integer times the
 // 8-bit significand of s, and 32896 s, are exact in f32); cvt.rn.bf16x2
-// rounds two weights into an A register.  The M > 8 form reads the scale
-// of a code beside it (one bf16 per block of rows of a column, served by
-// the L1 cache); it also serves M <= 8 at block sizes that are not a
-// multiple of 8.
+// rounds two weights into an A register.  At M > 8 (gemm_tc) the same
+// weight, with the scale rows streamed through the stage ring: one row a
+// 64-row stage (by TMA) where the block size is a multiple of 64, else one
+// row a k row (the scale row of each k row, copied by the producer's
+// lanes; a lane reads both of its columns' scales in one word).  gemm_tc
+// also serves M <= 8 at block sizes that are not a multiple of 8.
 
 #include "byte_storage_gemm.cuh"
 
@@ -30,14 +32,7 @@ struct MxDecoder {
   static constexpr bool kTable = false;
   static constexpr bool kScales = true;
   const uint16_t* scales;
-  int N;
   int bs;
-  __device__ __forceinline__ void setup(float*) const {}
-  __device__ __forceinline__ float operator()(int code, int k, int n,
-                                              const float*) const {
-    const float s = bsg::bf16_bits_to_float(scales[static_cast<size_t>(k / bs) * N + n]);
-    return bsg::round_bf16(static_cast<float>(code) * s);
-  }
   // each 8-row half of a k step reads one scale row
   __host__ __device__ bool decode_ok() const { return bs % 8 == 0; }
 
@@ -83,6 +78,35 @@ struct MxDecoder {
     a3 = pack_bf16(weight(w2, b + 1, s8_hi, c8_hi, magic),
                    weight(w3, b + 1, s8_hi, c8_hi, magic));
   }
+
+  // code * s of byte b of a flipped code word, s the low (hi == false) or
+  // high bf16 of a scale word
+  static __device__ __forceinline__ float scaled(uint32_t flipped, int b,
+                                                 uint32_t s_word, bool hi,
+                                                 uint32_t magic) {
+    const float s = __uint_as_float(hi ? s_word & 0xffff0000u : s_word << 16);
+    return weight(flipped, b, s, s * -32896.f, magic);
+  }
+  // the A registers of gemm_tc's k step: w01 holds the codes of the lane's
+  // columns col, col + 1 at k row 2q (bytes 0, 1) and 2q + 1 (bytes 2, 3),
+  // w89 those of rows 2q + 8 and 2q + 9; s_r the two columns' bf16 scales
+  // of row r (the same word four times where one row serves the stage)
+  __device__ __forceinline__ void tc_frag(uint32_t w01, uint32_t w89,
+                                          uint32_t s0, uint32_t s1,
+                                          uint32_t s8, uint32_t s9,
+                                          uint32_t magic,
+                                          uint32_t (&a)[4]) const {
+    w01 ^= 0x80808080u;
+    w89 ^= 0x80808080u;
+    a[0] = pack_bf16(scaled(w01, 0, s0, false, magic),
+                     scaled(w01, 2, s1, false, magic));
+    a[1] = pack_bf16(scaled(w01, 1, s0, true, magic),
+                     scaled(w01, 3, s1, true, magic));
+    a[2] = pack_bf16(scaled(w89, 0, s8, false, magic),
+                     scaled(w89, 2, s9, false, magic));
+    a[3] = pack_bf16(scaled(w89, 1, s8, true, magic),
+                     scaled(w89, 3, s9, true, magic));
+  }
 };
 
 }  // namespace
@@ -103,17 +127,17 @@ int mx_storage_matmul(const void* x, const void* codes, const void* scales,
                       int counters, int M, int K, int N, int bs, int sms,
                       void* stream) {
   if (bs <= 0 || K % bs) return static_cast<int>(cudaErrorInvalidValue);
-  const MxDecoder dec{static_cast<const uint16_t*>(scales), N, bs,
+  const MxDecoder dec{static_cast<const uint16_t*>(scales), bs,
                       0x47000000u};
   return bsg::launch(x, codes, dec, y, part, part_floats, count, counters, M,
                      K, N, sms, static_cast<cudaStream_t>(stream));
 }
 
-// bsg::decode_plan of that call: plan[0..3] = splits (0: the tiled form),
+// bsg::decode_plan of that call: plan[0..3] = splits (0: gemm_tc),
 // workspace floats, counters, rows a stage.
 void mx_storage_matmul_decode_plan(int M, int K, int N, int bs, int sms,
                                    int* plan) {
-  const MxDecoder dec{nullptr, N, bs, 0u};
+  const MxDecoder dec{nullptr, bs, 0u};
   const bsg::DecodePlan p = bsg::decode_plan(dec, M, K, N, sms);
   plan[0] = p.splits;
   plan[1] = p.part_floats;

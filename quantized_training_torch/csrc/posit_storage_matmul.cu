@@ -11,7 +11,7 @@
 // What bounds it on an H100, and the design: csrc/byte_storage_gemm.cuh.
 // Here each block first computes the 256-entry decode table in shared
 // memory from the device decode of csrc/qt_round.cuh (qt_posit_decode), so
-// a weight costs one table read.  At M <= 8 the table holds one copy a
+// a weight costs one table read.  In both forms the table holds one copy a
 // lane (32 KB), so that a warp's 32 lookups of random codes hit 32 banks;
 // a weight costs a byte permute, an address and the read, and a byte
 // permute packs the bf16 halves of two table words into an A register
@@ -27,15 +27,6 @@ struct PositDecoder {
   static constexpr bool kScales = false;
   int nbits;
   int es;
-  __device__ __forceinline__ void setup(float* table) const {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x)
-      table[i] = qt_posit_decode(i, nbits, es);
-    __syncthreads();
-  }
-  __device__ __forceinline__ float operator()(int code, int, int,
-                                              const float* table) const {
-    return table[code & 0xff];
-  }
   __host__ __device__ bool decode_ok() const { return true; }
   __device__ __forceinline__ float entry(int i) const {
     return qt_posit_decode(i, nbits, es);
@@ -65,6 +56,17 @@ struct PositDecoder {
     a2 = __byte_perm(look(w2, b, t), look(w3, b, t), 0x7632u);
     a3 = __byte_perm(look(w2, b + 1, t), look(w3, b + 1, t), 0x7632u);
   }
+  // the A registers of gemm_tc's k step, as MxDecoder::tc_frag (no scales)
+  __device__ __forceinline__ void tc_frag(uint32_t w01, uint32_t w89,
+                                          uint32_t, uint32_t, uint32_t,
+                                          uint32_t, uint32_t lane_table,
+                                          uint32_t (&a)[4]) const {
+    const uint32_t t = lane_table;
+    a[0] = __byte_perm(look(w01, 0, t), look(w01, 2, t), 0x7632u);
+    a[1] = __byte_perm(look(w01, 1, t), look(w01, 3, t), 0x7632u);
+    a[2] = __byte_perm(look(w89, 0, t), look(w89, 2, t), 0x7632u);
+    a[3] = __byte_perm(look(w89, 1, t), look(w89, 3, t), 0x7632u);
+  }
 };
 
 }  // namespace
@@ -90,7 +92,7 @@ int posit_storage_matmul(const void* x, const void* codes, void* y, void* part,
                      K, N, sms, static_cast<cudaStream_t>(stream));
 }
 
-// bsg::decode_plan of that call: plan[0..3] = splits (0: the tiled form),
+// bsg::decode_plan of that call: plan[0..3] = splits (0: gemm_tc),
 // workspace floats, counters, rows a stage.
 void posit_storage_matmul_decode_plan(int M, int K, int N, int es, int sms,
                                       int* plan) {

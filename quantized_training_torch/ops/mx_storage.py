@@ -71,9 +71,10 @@ def mx_matmul(x, codes, scales, *, block_size=64):
     CPU tensors take :func:`mx_matmul_plain`; CUDA tensors launch
     ``csrc/mx_storage_matmul.cu`` (bf16 x and output), and anything the
     kernel does not take raises.  M <= 8 with a block size that is a
-    multiple of 8 runs the tensor-core decode form, K split over blocks
-    (``_decode_gemm``); any other M or block size the tiled form.  Each
-    launch is also tallied by its (M, K, N) in ``mx_matmul.shape_launches``.
+    multiple of 8 runs the decode form (``mma.sync``, K split over blocks,
+    ``_decode_gemm``); any other M or block size the ``wgmma`` form
+    (``byte_storage_gemm.cuh:gemm_tc``).  Each launch is also tallied by
+    its (M, K, N) in ``mx_matmul.shape_launches``.
     """
     if x.device.type == "cpu":
         return mx_matmul_plain(x, codes, scales, block_size=block_size)

@@ -64,7 +64,8 @@ def posit_matmul(x, codes, *, nbits=8, es=1):
     CPU tensors take :func:`posit_matmul_plain`; CUDA tensors launch
     ``csrc/posit_storage_matmul.cu`` (bf16 x and output, posit8 with es
     0-2), and anything the kernel does not take raises.  M <= 8 runs the
-    tensor-core decode form, K split over blocks (``_decode_gemm``).  Each
+    decode form (``mma.sync``, K split over blocks, ``_decode_gemm``), a
+    larger M the ``wgmma`` form (``byte_storage_gemm.cuh:gemm_tc``).  Each
     launch is also tallied by its (M, K, N) in
     ``posit_matmul.shape_launches``.
     """

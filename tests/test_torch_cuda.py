@@ -6,8 +6,9 @@ the flash forward runs every form on the card within its bounds,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
 kernels and agree with their plain versions (the w4/w2 GEMM's tensor-core
 path at ragged shapes also bit for bit on the identity's rows, as the MX8
-and posit8 decode form at every block size and es, with odd N and
-misaligned codes and scales), the rounding kernel takes
+and posit8 GEMMs in both forms, the decode form at M <= 8 and the wgmma
+form above it, at every block size and es, with odd N and misaligned
+codes and scales), the rounding kernel takes
 the NormalFloat codebooks and native casts bit for bit, and both decode
 kernels take every instantiated GQA group and head dim (and refuse the
 rest).  Marked
@@ -16,6 +17,8 @@ a card's machine without JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+import math
 
 import pytest
 import torch
@@ -234,7 +237,7 @@ def test_storage_gemm_unaligned_operands_on_cuda(cuda_device):
                                   rtol=1e-2), (fmt, M)
 
 
-# ---- kernels 9 and 10 at M <= 8: the tensor-core decode form --------------
+# ---- kernels 9 and 10: the decode form (M <= 8) and the wgmma form ---------
 def _byte_pack(fmt, param, K, N, gen, device):
     """(wrapper, plain, operands, keywords, bf16 weight) of a seeded (K, N)
     weight in MX8 (param: the block size) or posit8 (param: es)."""
@@ -261,15 +264,45 @@ def _offset_view(t, nbytes):
 
 _DECODE_FORMS = [("mx8", 32), ("mx8", 64), ("mx8", 128), ("mx8", 8),
                  ("mx8", 24), ("posit8", 0), ("posit8", 1), ("posit8", 2)]
+# the wgmma form (M > 8, and M <= 8 at MX block sizes the decode form
+# refuses): MX block sizes 4 through 128 (one scale row a 64-row stage at
+# 64 and 128, one a k row below), posit8 es 0-2
+_TC_FORMS = [("mx8", bs) for bs in (4, 8, 12, 16, 24, 32, 48, 64, 128)] + [
+    ("posit8", 0), ("posit8", 1), ("posit8", 2)]
+# M of each form: the decode form's, and the wgmma form's across its
+# token tiles (64, 128, 256), ragged and not
+_FORM_MS = {"decode": tuple(range(1, 9)),
+            "tc": (9, 16, 67, 128, 129, 256, 1024)}
 
 
-@pytest.mark.parametrize("fmt,param", _DECODE_FORMS)
-def test_decode_form_identity_rows_bit_equal(cuda_device, fmt, param):
-    """The identity's rows, 8 a call, give the plain version's bf16 weight
-    rows bit for bit: the first and last 128 rows of K, at a K split over
-    several blocks (K=1024; 1032 at MX block size 24) and at one block
-    (K=128; 120)."""
+def _tc_shapes(fmt, param):
+    """(K, N) of the wgmma form's identity check: K a multiple of the MX
+    block size and of 8 near 1024 (several stages, a partial last one
+    where 64 does not divide it) and near 128, N ragged against the
+    128-column tile."""
+    step = 8 if fmt == "posit8" else math.lcm(param, 8)
+    return [(step * -(-1024 // step), 320), (step * -(-128 // step), 200)]
+
+
+@pytest.mark.parametrize("form,fmt,param",
+                         [("decode", f, p) for f, p in _DECODE_FORMS]
+                         + [("tc", f, p) for f, p in _TC_FORMS])
+def test_decode_form_identity_rows_bit_equal(cuda_device, form, fmt, param):
+    """The identity's rows give the plain version's bf16 weight rows bit
+    for bit.  Decode form: 8 rows a call, the first and last 128 rows of
+    K, at a K split over several blocks (K=1024; 1032 at MX block size 24)
+    and at one block (K=128; 120).  wgmma form: the whole identity in one
+    call (M = K, about 1024 and 128), so every row of the weight."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
+    if form == "tc":
+        for K, N in _tc_shapes(fmt, param):
+            fn, _, p, kw, w_bf16 = _byte_pack(fmt, param, K, N, gen,
+                                              cuda_device)
+            eye = torch.eye(K, dtype=torch.bfloat16, device=cuda_device)
+            got = _launches(fn, lambda: fn(eye, *p, **kw))
+            assert torch.equal(got.view(torch.int16),
+                               w_bf16.view(torch.int16)), (K, N)
+        return
     shapes = [(1024, 256), (128, 384)]
     if fmt == "mx8" and 128 % param:
         shapes = [(1032, 256), (120, 384)]
@@ -284,15 +317,17 @@ def test_decode_form_identity_rows_bit_equal(cuda_device, fmt, param):
                                w_bf16[rows].view(torch.int16)), (K, r0)
 
 
+@pytest.mark.parametrize("form", ["decode", "tc"])
 @pytest.mark.parametrize("fmt,param", [("mx8", 64), ("posit8", 1)])
-def test_decode_form_every_m_and_repeat(cuda_device, fmt, param):
-    """M 1-8 within 1e-4 + 1e-2*|plain| (chip_smoke.py's bound), one launch
-    a call, and a repeated call bit-equal, at K split over 16, 4 and 1
-    blocks."""
+def test_decode_form_every_m_and_repeat(cuda_device, fmt, param, form):
+    """Every M of the form (decode: 1-8; wgmma: 9, 16, 67, 128, 129, 256,
+    1024) within 1e-4 + 1e-2*|plain| (chip_smoke.py's bound), one launch
+    a call, and a repeated call bit-equal, at K = 4096, 512 and 128 (the
+    decode form splits them over 16, 4 and 1 blocks)."""
     gen = torch.Generator(device=cuda_device).manual_seed(8)
     for K, N in [(4096, 256), (512, 256), (128, 512)]:
         fn, plain, p, kw, _ = _byte_pack(fmt, param, K, N, gen, cuda_device)
-        for M in range(1, 9):
+        for M in _FORM_MS[form]:
             x = torch.randn((M, K), generator=gen,
                             device=cuda_device).bfloat16()
             got = _launches(fn, lambda: fn(x, *p, **kw))
@@ -304,16 +339,20 @@ def test_decode_form_every_m_and_repeat(cuda_device, fmt, param):
                                again.view(torch.int16)), (K, M)
 
 
-@pytest.mark.parametrize("fmt,param", [("mx8", 32), ("posit8", 2)])
-def test_decode_form_odd_shapes_and_offsets(cuda_device, fmt, param):
+@pytest.mark.parametrize("form", ["decode", "tc"])
+@pytest.mark.parametrize("fmt,param", [("mx8", 32), ("mx8", 64),
+                                       ("posit8", 2)])
+def test_decode_form_odd_shapes_and_offsets(cuda_device, fmt, param, form):
     """Odd N (a ragged last tile, byte copies), K not a multiple of 64 or 16
     (posit8), codes 1, 2 and 4 bytes past 16-byte alignment and MX scales
-    2 and 4 bytes past it: within the bound, the identity's first rows bit
-    for bit."""
+    2 and 4 bytes past it (the wgmma form: the producer's lanes copy what
+    TMA cannot bring): within the bound at M 1 and 8 (decode) or 9 and
+    130 (wgmma), the identity's first 8 (16) rows bit for bit."""
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     shapes = [(512, 77), (256, 1000)]
     if fmt == "posit8":
         shapes += [(520, 136), (200, 130)]
+    Ms, n_eye = ((1, 8), 8) if form == "decode" else ((9, 130), 16)
     for K, N in shapes:
         fn, plain, p, kw, w_bf16 = _byte_pack(fmt, param, K, N, gen,
                                               cuda_device)
@@ -322,41 +361,49 @@ def test_decode_form_odd_shapes_and_offsets(cuda_device, fmt, param):
         if fmt == "mx8":
             variants += [(p[0], _offset_view(p[1], off)) for off in (2, 4)]
         for q in variants:
-            for M in (1, 8):
+            for M in Ms:
                 x = torch.randn((M, K), generator=gen,
                                 device=cuda_device).bfloat16()
                 got = _launches(fn, lambda: fn(x, *q, **kw))
                 want = plain(x, *q, **kw)
                 assert torch.allclose(got.float(), want.float(), atol=1e-4,
                                       rtol=1e-2), (K, N, M)
-            eye = torch.eye(8, K, dtype=torch.bfloat16, device=cuda_device)
+            eye = torch.eye(n_eye, K, dtype=torch.bfloat16,
+                            device=cuda_device)
             got = fn(eye, *q, **kw)
             assert torch.equal(got.view(torch.int16),
-                               w_bf16[:8].view(torch.int16)), (K, N)
+                               w_bf16[:n_eye].view(torch.int16)), (K, N)
 
 
+@pytest.mark.parametrize("form", ["decode", "tc"])
 @pytest.mark.parametrize("block_size", [4, 12, 24])
-def test_mx_decode_at_other_block_sizes(cuda_device, block_size):
-    """MX block sizes that are not a multiple of 16 at M 1-8: 24 (a
+def test_mx_decode_at_other_block_sizes(cuda_device, block_size, form):
+    """MX block sizes that are not a multiple of 16: at M 1-8, 24 (a
     multiple of 8) in the decode form, a scale row for each half of a k
-    step; 4 and 12 in the tiled form.  Within 1e-4 + 1e-2*|plain|, one
-    launch a call, the identity's rows bit for bit."""
+    step, 4 and 12 in the wgmma form; at M 9, 67 and 129 all three in the
+    wgmma form, a scale row a k row.  Within 1e-4 + 1e-2*|plain|, one
+    launch a call, the identity's rows bit for bit (8 or 16 a call, the
+    first and last of K)."""
     gen = torch.Generator(device=cuda_device).manual_seed(10)
+    Ms, n_eye = ((range(1, 9), 8) if form == "decode"
+                 else ((9, 67, 129), 16))
     for K, N in [(1032, 256), (120, 200)]:
         fn, plain, p, kw, w_bf16 = _byte_pack("mx8", block_size, K, N, gen,
                                               cuda_device)
-        for M in range(1, 9):
+        for M in Ms:
             x = torch.randn((M, K), generator=gen,
                             device=cuda_device).bfloat16()
             got = _launches(fn, lambda: fn(x, *p, **kw))
             want = plain(x, *p, **kw)
             assert torch.allclose(got.float(), want.float(), atol=1e-4,
                                   rtol=1e-2), (K, M)
-        for r0 in (0, K - 8):
-            eye = torch.zeros((8, K), dtype=torch.bfloat16, device=cuda_device)
-            eye[torch.arange(8), torch.arange(r0, r0 + 8)] = 1
+        for r0 in (0, K - n_eye):
+            eye = torch.zeros((n_eye, K), dtype=torch.bfloat16,
+                              device=cuda_device)
+            eye[torch.arange(n_eye), torch.arange(r0, r0 + n_eye)] = 1
             assert torch.equal(fn(eye, *p, **kw).view(torch.int16),
-                               w_bf16[r0:r0 + 8].view(torch.int16)), (K, r0)
+                               w_bf16[r0:r0 + n_eye].view(torch.int16)), \
+                (K, r0)
 
 
 def test_dequant_planes_bit_equal_on_cuda(cuda_device):

@@ -3,9 +3,11 @@
 GPU, so that two versions of a kernel are compared within one run: kernel 5
 (the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at its prefill shapes, and
 kernels 9 and 10 (the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu``
-and ``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes:
+and ``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes and at
+M > 8 (its qkv and down at a 2048-token prefill, its qkv at one slot's
+128-token prompt):
 
-    python3 time_storage_gemm.py [--steps-only] ROOT [ROOT ...]
+    python3 time_storage_gemm.py [--steps-only | --match TEXT] ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``quantized_training_torch`` package
 (``.`` for this checkout).  The checkouts are timed in the order given, each
@@ -18,12 +20,16 @@ of a call, the mean over 200 calls queued back to back without a wait
 (the card runs behind, so the host sets that pace).  Every weight is seeded, group
 or MX block 64, posit8 es 1.  Then it serves chip_smoke.py's posit8_kv4
 and mx8_kv4 format arms (2 layers at 7B width, 8 slots of 128 prompt
-tokens): the median of 20 decode steps' wall time and of their host time
-(from the step's call until it has been queued, before the wait for the
-card), and one more step traced (``torch.profiler``) for the device's busy
-time, its idle share and the device time of the byte-storage GEMMs
-(kernels in ``bsg::``).  ``--steps-only`` serves the arms and times no
-shape, for many alternating runs (P A P A ...) in one call.  Prints a line
+tokens): the median of 5 prefills' wall time, one more prefill traced
+(``torch.profiler``) for the device's busy time and the device time of the
+byte-storage GEMMs (kernels in ``bsg::``, 10 launches at M = 1024 and the
+lm_head's at M = 8), then the median of 20 decode steps' wall time and of
+their host time (from the step's call until it has been queued, before
+the wait for the card), and one more step traced for the device's busy
+time, its idle share and the byte-storage GEMMs' device time.
+``--steps-only`` serves the arms and times no shape, for many alternating
+runs (P A P A ...) in one call; ``--match TEXT`` times only the shapes
+whose label holds TEXT and serves no arm.  Prints a line
 per checkout and shape or arm, then the card's name and power limit and
 one JSON object with every reading; exits non-zero if a check fails or
 CUDA is not available.
@@ -42,6 +48,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # largest prefill bucket and its qkv at the smallest, Phi-3-medium's
 # gate/up, and the w2 format's two prefill rows of chip_smoke.py; kernels 9
 # and 10 at the 7B decode shapes (qkv fused, o, gate and up, down, lm_head)
+# and at chip_smoke.py's M > 8 rows (TC_SHAPES)
 SHAPES = [("7B qkv", "w4", 2048, 4096, 12288),
           ("7B down", "w4", 2048, 11008, 4096),
           ("7B qkv, bucket 512", "w4", 512, 4096, 12288),
@@ -56,6 +63,9 @@ for _fmt in ("mx8", "posit8"):
                                        ("down", 11008, 4096, (8,)),
                                        ("lm_head", 4096, 32000, (8,))]
                for M in Ms]
+    SHAPES += [(f"{_fmt} prefill qkv", _fmt, 2048, 4096, 12288),
+               (f"{_fmt} prefill down", _fmt, 2048, 11008, 4096),
+               (f"{_fmt} prompt qkv", _fmt, 128, 4096, 12288)]
 
 
 def gemm(fmt, w):
@@ -79,9 +89,10 @@ def gemm(fmt, w):
             lambda x: ps.posit_matmul_plain(x, c, es=1))
 
 
-def time_one(root, steps_only=False):
-    """Time ROOT's kernels at every shape (none with ``steps_only``) and
-    its decode steps; prints one JSON line."""
+def time_one(root, steps_only=False, match=None):
+    """Time ROOT's kernels at every shape (none with ``steps_only``, those
+    whose label holds ``match`` where given) and its arms' prefills and
+    decode steps (none with ``match``); prints one JSON line."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -96,6 +107,8 @@ def time_one(root, steps_only=False):
     timer = smoke.Timer(torch)
     rows = []
     for label, fmt, M, K, N in [] if steps_only else SHAPES:
+        if match is not None and match not in label:
+            continue
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         call, plain = gemm(fmt, w)
         x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
@@ -111,15 +124,16 @@ def time_one(root, steps_only=False):
         rows.append(dict(shape=label, format=fmt, M=M, K=K, N=N, ok=ok,
                          ms=timer(lambda: call(x)), host_us=host_us))
         del w, call, plain, x, got, want
-    steps = [decode_step(torch, smoke, fmt) for fmt in ("posit8", "mx8")]
+    steps = [] if match is not None else [
+        decode_step(torch, smoke, fmt) for fmt in ("posit8", "mx8")]
     print(json.dumps({"root": root, "rows": rows, "decode_steps": steps}),
           flush=True)
 
 
 def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
-    """chip_smoke.py's format arm ``fmt``_kv4 at 2 layers: a prefill of B
-    slots of S tokens, ``steps`` timed decode steps (wall and host time),
-    one more traced."""
+    """chip_smoke.py's format arm ``fmt``_kv4 at 2 layers: prefills of B
+    slots of S tokens (5 timed, one traced), then ``steps`` timed decode
+    steps (wall and host time), one more traced."""
     import quantized_training_torch as qt
     cfg, qc = smoke.serving_config(qt, 2, fmt, "int4")
     model = qt.LlamaForCausalLM(cfg, qc, device="cuda")
@@ -127,9 +141,22 @@ def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
                                            device="cuda"), assign=True)
     ids = torch.randint(0, cfg.vocab_size, (B, S),
                         generator=torch.Generator().manual_seed(0)).cuda()
+    def prefill():
+        with torch.no_grad():
+            return model(ids, use_cache=True, prompt_len=S,
+                         last_logit_only=True)
+
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = prefill()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    prefill_ms = sorted(walls[1:])[2]
+    pre = smoke.profile(torch, prefill, prefill_ms, "8-slot prefill",
+                        watch=("bsg::",)) or {}
     with torch.no_grad():
-        logits, caches = model(ids, use_cache=True, prompt_len=S,
-                               last_logit_only=True)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times, host = [], []
         for i in range(steps):
@@ -150,14 +177,16 @@ def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
 
     prof = smoke.profile(torch, one_step, ms, "decode step",
                          watch=("bsg::",)) or {}
-    return {"format": fmt, "decode_ms_per_step": ms, "host_ms_per_step":
-            host_ms,
+    return {"format": fmt, "prefill_ms": prefill_ms,
+            "prefill_busy_ms": pre.get("busy_ms"),
+            "prefill_storage_gemm_ms": pre.get("watched_ms", {}).get("bsg::"),
+            "decode_ms_per_step": ms, "host_ms_per_step": host_ms,
             "busy_ms": prof.get("busy_ms"),
             "idle_share": prof.get("idle_share"),
             "storage_gemm_ms": prof.get("watched_ms", {}).get("bsg::")}
 
 
-def main(roots, steps_only=False):
+def main(roots, steps_only=False, match=None):
     import torch
     if not torch.cuda.is_available():
         print("time_storage_gemm: CUDA is not available", file=sys.stderr)
@@ -167,10 +196,10 @@ def main(roots, steps_only=False):
                          text=True, timeout=60)
     runs, ok = [], True
     for root in roots:
+        flags = (["--steps-only"] if steps_only else []) + (
+            ["--match", match] if match else [])
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root] + (["--steps-only"] if
-                                                 steps_only else []),
-                              capture_output=True,
+                               "--one", root] + flags, capture_output=True,
                               text=True, timeout=900)
         line = proc.stdout.strip().splitlines()[-1:] or [""]
         if proc.returncode != 0 or not line[0].startswith("{"):
@@ -187,6 +216,10 @@ def main(roots, steps_only=False):
                   f"{r['ok']}", flush=True)
             ok = ok and r["ok"]
         for d in run["decode_steps"]:
+            print(f"{root}  {d['format']}_kv4 8-slot prefill: "
+                  f"{d['prefill_ms']:.3f} ms wall, busy "
+                  f"{d['prefill_busy_ms']} ms, storage GEMMs "
+                  f"{d['prefill_storage_gemm_ms']} ms", flush=True)
             print(f"{root}  {d['format']}_kv4 decode step: "
                   f"{d['decode_ms_per_step']:.3f} ms wall, host "
                   f"{d['host_ms_per_step']:.3f} ms, busy "
@@ -198,11 +231,21 @@ def main(roots, steps_only=False):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        time_one(sys.argv[2], "--steps-only" in sys.argv[3:])
-    elif sys.argv[1:2] == ["--steps-only"] and len(sys.argv) > 2:
-        sys.exit(main(sys.argv[2:], steps_only=True))
-    elif len(sys.argv) > 1:
-        sys.exit(main(sys.argv[1:]))
+    import argparse
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n", 1)[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("roots", nargs="+", metavar="ROOT")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--steps-only", action="store_true",
+                      help="serve the arms, time no shape")
+    mode.add_argument("--match", metavar="TEXT",
+                      help="time only the shapes whose label holds TEXT, "
+                      "serve no arm")
+    # one ROOT in this process (main runs each ROOT so)
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        time_one(args.roots[0], args.steps_only, args.match)
     else:
-        sys.exit(__doc__)
+        sys.exit(main(args.roots, args.steps_only, args.match))
