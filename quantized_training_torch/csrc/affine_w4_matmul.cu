@@ -16,15 +16,51 @@
 // and the plain version differ only in the order of the f32 sums.
 //
 // What bounds it on an H100: at decode (M <= 8) the bytes of the codes and
-// qparams (K*N*NBITS/8 + K*N/8 per GEMM at group 64) over 3.35 TB/s; at
-// prefill the 2*M*K*N operations, on the tensor cores.  Design:
-//   * M <= 8 (CUDA cores): one thread per output column, eight warps per
-//     block splitting K by groups, each warp loading a group's words for 32
-//     adjacent columns (128-byte coalesced rows) before using them, so eight
-//     loads are in flight per warp; x rows are read through the L1 cache;
-//     the eight partial sums meet in shared memory.  Words are unpacked by a
-//     left shift on the unsigned word and an arithmetic right shift of its
-//     int32 reinterpretation.
+// qparams, K*N*NBITS/8 + 8*K*N/group per GEMM, over 3.35 TB/s (qparams are
+// 20% of them at w4 and 33% at w2, group 64); at prefill the 2*M*K*N
+// operations, on the tensor cores.  Both forms run on the tensor cores;
+// w4_decode_plan, exported as affine_w4_matmul_decode_plan, is the one rule
+// that picks the form.  Design:
+//   * M <= 8 at a group that is a multiple of 16 (w4_gemm_decode, mma.sync):
+//     y^T = W^T x^T with mma.sync m16n8k16 (bf16 in, f32 sums), each weight
+//     dequantized in registers straight into the A fragment, the M tokens
+//     (rows past M zero) on the n8 side.  A lane's fragment rows are k 2t,
+//     2t+1, 2t+8, 2t+9 of a 16-deep k step (t = lane % 4): at w4 byte t of
+//     each of the column's two words of the step (deq4_pair), at w2
+//     nibbles t and t + 4 of its one word (deq2_quad).  A block owns 128
+//     output columns; lane group g = lane / 4 owns the columns 32j + 4g ..
+//     32j + 4g + 3 (j = 0..3), so one 16-byte shared read of a word row
+//     feeds four columns and the eight groups' reads of a row cover 128
+//     consecutive bytes, 32 banks, without conflict.  A row g (g + 8) of
+//     the warp's mma 2j + h is column 32j + 4g + 2h (+1).
+//   * K is split over blocks along whole groups (the grid is (column tiles,
+//     splits); w4_decode_plan fills the SMs about twice over, as the byte
+//     GEMMs' bsg::decode_plan does, or evens their load), and a
+//     block's 8 warps each take a contiguous run of its k steps, so that a
+//     warp reads a group's sf and zp once, into registers, where its run
+//     enters the group: once a group per block where the runs hold whole
+//     groups.  The per-weight path keeps the plain version's arithmetic,
+//     bf16((c - zp) * sf) with two f32 roundings, bit for bit: zp is no
+//     integer, so it cannot join deq_at's exact magic-number subtraction.
+//   * Each warp streams its k steps through a cp.async ring of its own (the
+//     step's 16/PER word rows of 512 bytes, the tokens' x over the same k
+//     and, where the step opens a group, the group's sf and zp rows),
+//     16-byte copies where N % 4 == 0 and the codes and qparams are
+//     16-byte aligned, else 4-byte ones, zero past N and M; waited on with
+//     __syncwarp, so the warps drift apart and one warp's dequant overlaps
+//     another's copies.  The dequant, not the stream, is the work that
+//     limits it: about five CUDA-core operations a weight (deq_at's four,
+//     its magic numbers a kernel parameter so that the mask and the magic
+//     take one LOP3, and half a pack, and at w4 half a shift), amortized
+//     over at most 8 tokens, so 2-4x the byte GEMMs' dequant work per
+//     byte.
+//   * The warps' sums meet in shared memory in warp order, and with more
+//     than one split the last block of a column tile adds the splits'
+//     partials in split order (bsg::decode_finish, shared with the byte
+//     GEMMs): the same bits from every call, no atomics on the output.
+//   * Any other M, and M <= 8 at a group that does not hold a whole 16-deep
+//     k step (w4 group 8), runs w4_gemm_tc, whose TMA reads the rows past
+//     M as zero.
 //   * M > 8 (tensor cores, wgmma): the operands swapped, y^T = W^T x^T, so
 //     that the weight is dequantized in registers straight into wgmma's A
 //     fragment and never makes a bf16 round trip through shared memory; x
@@ -43,106 +79,21 @@
 //     once to bf16 (nearest even) and the tile is staged through shared
 //     memory for coalesced rows of y.
 
+#include "byte_storage_gemm.cuh"
 #include "tma_pipe.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ uint16_t float_to_bf16_bits(float v) {
-  uint32_t u = __float_as_uint(round_bf16(v));
-  return static_cast<uint16_t>(u >> 16);
-}
-
-template <int NBITS>
-__device__ __forceinline__ float dequant(uint32_t word, int p, float zp,
-                                         float sf) {
-  constexpr int MID = 1 << (NBITS - 1);
-  const int32_t c = static_cast<int32_t>(word << (32 - NBITS * (p + 1))) >>
-                    (32 - NBITS);  // c - MID
-  return round_bf16((static_cast<float>(c + MID) - zp) * sf);
-}
-
-// ---- M <= 8 ---------------------------------------------------------------
-constexpr int SM_MAXM = 8;
-constexpr int SM_WARPS = 8;
-constexpr int SM_BN = 32;
-constexpr int SM_CHUNK = 8;  // words loaded before use, per lane
-
-template <int NBITS>
-__global__ void __launch_bounds__(SM_WARPS * 32)
-w4_gemm_small_m(const uint16_t* __restrict__ x,
-                const int32_t* __restrict__ codes,
-                const float* __restrict__ sf, const float* __restrict__ zp,
-                uint16_t* __restrict__ y, int M, int K, int N, int group) {
-  constexpr int PER = 32 / NBITS;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * SM_BN + lane;
-  const int ngroups = K / group;
-  const int gwords = group / PER;
-
-  float acc[SM_MAXM];
-#pragma unroll
-  for (int m = 0; m < SM_MAXM; ++m) acc[m] = 0.f;
-
-  if (n < N) {
-    for (int g = warp; g < ngroups; g += SM_WARPS) {
-      const float s = sf[static_cast<size_t>(g) * N + n];
-      const float z = zp[static_cast<size_t>(g) * N + n];
-      for (int w0 = 0; w0 < gwords; w0 += SM_CHUNK) {
-        const int nw = min(SM_CHUNK, gwords - w0);
-        const int r0 = g * gwords + w0;  // first word row of this chunk
-        uint32_t words[SM_CHUNK];
-#pragma unroll
-        for (int w = 0; w < SM_CHUNK; ++w)
-          words[w] = w < nw ? static_cast<uint32_t>(
-                                  codes[static_cast<size_t>(r0 + w) * N + n])
-                            : 0u;
-#pragma unroll
-        for (int w = 0; w < SM_CHUNK; ++w) {
-          if (w >= nw) break;
-          float wv[PER];
-#pragma unroll
-          for (int p = 0; p < PER; ++p) wv[p] = dequant<NBITS>(words[w], p, z, s);
-          const int k0 = (r0 + w) * PER;
-#pragma unroll
-          for (int m = 0; m < SM_MAXM; ++m) {
-            if (m >= M) break;
-            float a = acc[m];
-#pragma unroll
-            for (int h = 0; h < PER / 8; ++h) {  // 8 x values per 16 bytes
-              const uint4 xv = *reinterpret_cast<const uint4*>(
-                  x + static_cast<size_t>(m) * K + k0 + 8 * h);
-              const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                a += bf16_bits_to_float(xw[q] & 0xffffu) * wv[8 * h + 2 * q];
-                a += bf16_bits_to_float(xw[q] >> 16) * wv[8 * h + 2 * q + 1];
-              }
-            }
-            acc[m] = a;
-          }
-        }
-      }
-    }
-  }
-
-  __shared__ float red[SM_WARPS][SM_MAXM][SM_BN];
-#pragma unroll
-  for (int m = 0; m < SM_MAXM; ++m) red[warp][m][lane] = acc[m];
-  __syncthreads();
-  // SM_WARPS == SM_MAXM: warp index doubles as the output row
-  const int m = warp;
-  float sum = 0.f;
-#pragma unroll
-  for (int w = 0; w < SM_WARPS; ++w) sum += red[w][m][lane];
-  if (m < M && n < N)
-    y[static_cast<size_t>(m) * N + n] = float_to_bf16_bits(sum);
-}
+using bsg::DC_BK;
+using bsg::DC_BN;
+using bsg::DC_MAX_SPLITS;
+using bsg::DC_MAXM;
+using bsg::DC_MIN_BLOCKS;
+using bsg::DC_OUT;
+using bsg::DC_THREADS;
+using bsg::DC_WARPS;
+using bsg::DC_XROW;
 
 // ---- M > 8: tensor cores --------------------------------------------------
 // y^T = W^T x^T per block of TC_BN output columns x BM tokens: each of two
@@ -178,9 +129,10 @@ struct TcLayout {
   static constexpr int SMEM_BYTES = 1024 + BARS + 2 * TC_STAGES * 8;
 };
 
-// w = bf16((c - zp) * sf) for the codes at bits b.. of t, as dequant<NBITS>:
-// the field, its top bit flipped (c = centered + MID), is OR'd into the
-// mantissa of 2^(23-b), and subtracting 2^(23-b) gives float(c) exactly
+// w = (c - zp) * sf in f32 for the code at bits b.. of t (the plain
+// version's weight before its bf16 rounding): the field, its top bit
+// flipped (c = centered + 2^(NBITS-1)), is OR'd into the mantissa of
+// 2^(23-b), and subtracting 2^(23-b) gives float(c) exactly
 __device__ __forceinline__ float deq_at(uint32_t t, uint32_t mask,
                                         uint32_t magic, float base, float z,
                                         float s) {
@@ -188,23 +140,40 @@ __device__ __forceinline__ float deq_at(uint32_t t, uint32_t mask,
   return __fmul_rn(__fsub_rn(c, z), s);
 }
 
+// The magic numbers of deq4_pair (m[0..1]) and deq2_quad (m[0..3]).  A
+// LOP3 takes one immediate, so (t & mask) ^ magic is one instruction only
+// where the magic is no constant the compiler knows: the decode form takes
+// them as a kernel parameter (the 7B qkv decode 0.0327-0.0341 ms against
+// 0.0344-0.0346 with two LOP3 a weight, the w2 13B qkv 0.0368 against
+// 0.0419; PERF.md); the wgmma form's defaults are immediates.
+struct Magic {
+  uint32_t m[4];
+};
+__host__ __device__ constexpr Magic magic_of(int nbits) {
+  return nbits == 4 ? Magic{{0x4b000008u, 0x49000080u, 0u, 0u}}
+                    : Magic{{0x4b000002u, 0x4a000008u, 0x43020000u,
+                             0x42080000u}};
+}
+
 // w4: fields 2q and 2q+1 of a word (bits 8q..8q+7), packed lo, hi
 __device__ __forceinline__ uint32_t deq4_pair(uint32_t w, int q, float z,
-                                              float s) {
+                                              float s,
+                                              Magic g = magic_of(4)) {
   const uint32_t t = w >> (8 * q);
-  return pack_bf16(deq_at(t, 0xfu, 0x4b000008u, 8388608.f, z, s),
-                   deq_at(t, 0xf0u, 0x49000080u, 524288.f, z, s));
+  return pack_bf16(deq_at(t, 0xfu, g.m[0], 8388608.f, z, s),
+                   deq_at(t, 0xf0u, g.m[1], 524288.f, z, s));
 }
 
 // w2: fields 2q, 2q+1 (bits 4q..4q+3) into lo and 2q+8, 2q+9 (bits
 // 4q+16..4q+19) into hi
 __device__ __forceinline__ void deq2_quad(uint32_t w, int q, float z, float s,
-                                          uint32_t& lo, uint32_t& hi) {
+                                          uint32_t& lo, uint32_t& hi,
+                                          Magic g = magic_of(2)) {
   const uint32_t t = w >> (4 * q);
-  lo = pack_bf16(deq_at(t, 0x3u, 0x4b000002u, 8388608.f, z, s),
-                 deq_at(t, 0xcu, 0x4a000008u, 2097152.f, z, s));
-  hi = pack_bf16(deq_at(t, 0x30000u, 0x43020000u, 128.f, z, s),
-                 deq_at(t, 0xc0000u, 0x42080000u, 32.f, z, s));
+  lo = pack_bf16(deq_at(t, 0x3u, g.m[0], 8388608.f, z, s),
+                 deq_at(t, 0xcu, g.m[1], 2097152.f, z, s));
+  hi = pack_bf16(deq_at(t, 0x30000u, g.m[2], 128.f, z, s),
+                 deq_at(t, 0xc0000u, g.m[3], 32.f, z, s));
 }
 
 // ROWS rows of TC_BN 4-byte values of a (R, N) matrix, source row row(i)
@@ -434,17 +403,234 @@ cudaError_t launch_tc_tile(const uint16_t* x, const int32_t* codes,
   return cudaErrorInvalidValue;
 }
 
-// the token tile on this card (tma_pipe.cuh:pick_tile_m)
-int pick_tile_m(int M, int N) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
+// ---- M <= 8: tensor cores (mma.sync) --------------------------------------
+// The decode form (the design at the head of the file).  A warp's ring slot
+// holds one 16-deep k step: its WR word rows of DC_BN columns (512 bytes
+// each, column n0 + 4c + e at byte 16c + 4e), the tokens' x over the same
+// k (DC_XROW bytes a token, as in bsg::gemm_decode) and, where the step
+// opens a group in the warp's run, that group's sf and zp rows.
+template <int NBITS>
+struct W4DecodeLayout {
+  static constexpr int PER = 32 / NBITS;
+  static constexpr int WR = 16 / PER;               // word rows a k step
+  static constexpr int ROW = DC_BN * 4;             // a row of words or qparams
+  static constexpr int STAGES = NBITS == 4 ? 4 : 6; // about 1 KB of codes a
+                                                    // stage either way
+  static constexpr int CODES = WR * ROW;
+  static constexpr int X = DC_MAXM * DC_XROW;
+  static constexpr int STEP = CODES + X + 2 * ROW;  // a multiple of 16
+  static constexpr int RING = DC_WARPS * STAGES * STEP;
+  static_assert(RING >= DC_WARPS * DC_OUT * 4, "the warps' sums need the ring");
+};
+
+// The decode form's launch of an (M, K) x (K, N) product at `group` on a card
+// of `sms` SMs: `splits` blocks along K for each DC_BN-column tile (0 where
+// the form does not serve it: M > 8, or a group that is not a multiple of
+// 16), at most DC_MAX_SPLITS, K / group and one a 128-row share (so that
+// each warp has a k step): the most that keep every tile's blocks within
+// DC_MIN_BLOCKS an SM (bsg::decode_plan's rule), or up to twice that where
+// the blocks then spread more evenly over the SMs (the 7B qkv: 4 splits,
+// 0.0343 ms against 0.0369 at 2 and 0.0389 at 8; more splits cost more at
+// every other decode shape; PERF.md).  Split s takes groups
+// [s * G / splits, (s + 1) * G / splits) of the G = K / group.  stage_rows
+// is the group: the rows a split is counted in.
+bsg::DecodePlan w4_decode_plan(int M, int K, int N, int group, int sms) {
+  bsg::DecodePlan p{0, 0, 0, group};
+  if (M > DC_MAXM || group < 16 || group % 16 || K < group || K % group ||
+      N < 1 || sms < 1)
+    return p;
+  const int tiles = (N + DC_BN - 1) / DC_BN;
+  const int most = std::min({DC_MAX_SPLITS, K / group,
+                             std::max(1, K / DC_BK)});
+  const int least = std::max(1, std::min(most, DC_MIN_BLOCKS * sms / tiles));
+  // up to twice that many where the blocks then spread more evenly over
+  // the SMs: the waves of blocks an SM runs, per unit of work
+  auto cost = [&](int s) {
+    return static_cast<double>((tiles * s + sms - 1) / sms) / s;
+  };
+  const int top = std::min(most, 2 * least);
+  double best = cost(least);
+  for (int s = least + 1; s <= top; ++s) best = std::min(best, cost(s));
+  p.splits = least;
+  while (cost(p.splits) > 1.05 * best) ++p.splits;
+  if (p.splits > 1) {
+    p.part_floats = p.splits * tiles * DC_OUT;
+    p.counters = tiles;
   }
-  return pick_tile_m(M, N, TC_BN, sms);
+  return p;
+}
+
+// One 512-byte smem row: columns n0.. of row r of a (R, N) 4-byte matrix,
+// chunk `lane` (columns n0 + 4 lane .. + 3) by this lane, zero at or past N
+__device__ __forceinline__ void copy_row(uint32_t dst, const void* src, int r,
+                                         int n0, int N, int lane, bool vec16) {
+  const char* base = static_cast<const char*>(src);
+  const int n = n0 + 4 * lane;
+  const size_t at = (static_cast<size_t>(r) * N + n) * 4;
+  if (vec16) {
+    cp_async16(dst + 16 * lane, n < N ? base + at : base, n < N);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cp_async4(dst + 16 * lane + 4 * e, n + e < N ? base + at + 4 * e : base,
+                n + e < N);
+  }
+}
+
+// k step q (rows 16q..16q+15) into a warp's ring slot, by its 32 lanes: the
+// word rows, the tokens' x (zero past M) and, with `opens`, the sf and zp
+// rows of the step's group
+template <int NBITS>
+__device__ __forceinline__ void issue_step(
+    uint32_t slot, const uint16_t* __restrict__ x,
+    const int32_t* __restrict__ codes, const float* __restrict__ sf,
+    const float* __restrict__ zp, int q, bool opens, int n0, int M, int K,
+    int N, int group, int lane, bool vec16) {
+  using L = W4DecodeLayout<NBITS>;
+#pragma unroll
+  for (int r = 0; r < L::WR; ++r)
+    copy_row(slot + r * L::ROW, codes, q * L::WR + r, n0, N, lane, vec16);
+  if (lane < 2 * DC_MAXM) {  // 8 tokens x 2 chunks
+    const int tok = lane >> 1, k = 16 * q + 8 * (lane & 1);
+    const bool ok = tok < M;
+    cp_async16(slot + L::CODES + tok * DC_XROW + 16 * (lane & 1),
+               ok ? x + static_cast<size_t>(tok) * K + k : x, ok);
+  }
+  if (opens) {
+    const int g = 16 * q / group;
+    copy_row(slot + L::CODES + L::X, sf, g, n0, N, lane, vec16);
+    copy_row(slot + L::CODES + L::X + L::ROW, zp, g, n0, N, lane, vec16);
+  }
+}
+
+template <int NBITS>
+__global__ void __launch_bounds__(DC_THREADS, DC_MIN_BLOCKS)
+w4_gemm_decode(const uint16_t* __restrict__ x,
+               const int32_t* __restrict__ codes, const float* __restrict__ sf,
+               const float* __restrict__ zp, uint16_t* __restrict__ y,
+               float* __restrict__ part, int* __restrict__ count, int M, int K,
+               int N, int group, int splits, Magic magic) {
+  using L = W4DecodeLayout<NBITS>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int tiles = gridDim.x;
+  const int n0 = tile * DC_BN;
+  // this block's groups, as k steps, in split order; this warp's
+  // contiguous share of them
+  const int ngroups = K / group, gsteps = group / 16;
+  const int q0 = static_cast<int>(static_cast<long>(split) * ngroups / splits)
+                 * gsteps;
+  const int q1 = static_cast<int>(static_cast<long>(split + 1) * ngroups /
+                                  splits) * gsteps;
+  const int qa = q0 + (q1 - q0) * warp / DC_WARPS;
+  const int nq = q0 + (q1 - q0) * (warp + 1) / DC_WARPS - qa;
+  const uint32_t ring = smem_u32(smem) + warp * L::STAGES * L::STEP;
+  const bool vec16 = (N & 3) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(codes) |
+                       reinterpret_cast<uintptr_t>(sf) |
+                       reinterpret_cast<uintptr_t>(zp)) & 15) == 0;
+
+  // the issue side's step and its place in its group (a step with place 0,
+  // or the run's first, opens a group)
+  int qi = qa, place = qa % gsteps;
+  auto issue = [&](int i) {
+    if (i < nq)
+      issue_step<NBITS>(ring + (i % L::STAGES) * L::STEP, x, codes, sf, zp,
+                        qi, i == 0 || place == 0, n0, M, K, N, group, lane,
+                        vec16);
+    cp_async_commit();
+    ++qi;
+    if (++place == gsteps) place = 0;
+  };
+#pragma unroll
+  for (int s = 0; s < L::STAGES - 1; ++s) issue(s);
+
+  float acc[8][4];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+  // the sf and zp of the lane's 16 columns 32j + 4g + e, index 4j + e
+  float zr[16], sr[16];
+  int uplace = qa % gsteps;  // the use side's place in its group
+
+  for (int i = 0; i < nq; ++i) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncwarp();  // every lane's copies of step i have landed, and every
+                   // lane is done with the slot that step i + STAGES - 1
+                   // takes
+    issue(i + L::STAGES - 1);
+
+    const uint8_t* step =
+        smem + warp * L::STAGES * L::STEP + (i % L::STAGES) * L::STEP;
+    if (i == 0 || uplace == 0) {
+      const uint8_t* qp = step + L::CODES + L::X + 16 * g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 s4 = *reinterpret_cast<const float4*>(qp + 128 * j);
+        const float4 z4 =
+            *reinterpret_cast<const float4*>(qp + L::ROW + 128 * j);
+        sr[4 * j] = s4.x, sr[4 * j + 1] = s4.y;
+        sr[4 * j + 2] = s4.z, sr[4 * j + 3] = s4.w;
+        zr[4 * j] = z4.x, zr[4 * j + 1] = z4.y;
+        zr[4 * j + 2] = z4.z, zr[4 * j + 3] = z4.w;
+      }
+    }
+    if (++uplace == gsteps) uplace = 0;
+    const uint8_t* xp = step + L::CODES + g * DC_XROW + 4 * t;
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xp);
+    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xp + 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // the lane's words of columns 32j + 4g .. + 3, in each word row
+      uint4 v[L::WR];
+#pragma unroll
+      for (int r = 0; r < L::WR; ++r)
+        v[r] = *reinterpret_cast<const uint4*>(step + r * L::ROW + 128 * j +
+                                               16 * g);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // mma 2j + h: A rows g and g + 8 are the lane's columns ca = 4j + 2h
+        // and ca + 1, words e = 2h and 2h + 1 of the chunk
+        const int ca = 4 * j + 2 * h, cb = ca + 1;
+        uint32_t a0, a1, a2, a3;
+        if constexpr (NBITS == 4) {
+          // k 2t, 2t+1 in the step's first word, 2t+8, 2t+9 in its second
+          a0 = deq4_pair(h ? v[0].z : v[0].x, t, zr[ca], sr[ca], magic);
+          a1 = deq4_pair(h ? v[0].w : v[0].y, t, zr[cb], sr[cb], magic);
+          a2 = deq4_pair(h ? v[1].z : v[1].x, t, zr[ca], sr[ca], magic);
+          a3 = deq4_pair(h ? v[1].w : v[1].y, t, zr[cb], sr[cb], magic);
+        } else {
+          deq2_quad(h ? v[0].z : v[0].x, t, zr[ca], sr[ca], a0, a2, magic);
+          deq2_quad(h ? v[0].w : v[0].y, t, zr[cb], sr[cb], a1, a3, magic);
+        }
+        bsg::mma_bf16(acc[2 * j + h], a0, a1, a2, a3, b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  bsg::decode_finish(
+      acc, [&](int m) { return 32 * (m >> 1) + 4 * g + 2 * (m & 1); }, smem,
+      y, part, count, tile, split, splits, tiles, n0, M, N);
+}
+
+template <int NBITS>
+cudaError_t launch_decode(const uint16_t* x, const int32_t* codes,
+                          const float* sf, const float* zp, uint16_t* y,
+                          float* part, int* count, int M, int K, int N,
+                          int group, int splits, cudaStream_t s) {
+  auto kern = w4_gemm_decode<NBITS>;
+  constexpr int smem = W4DecodeLayout<NBITS>::RING;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + DC_BN - 1) / DC_BN, splits);
+  kern<<<grid, DC_THREADS, smem, s>>>(x, codes, sf, zp, y, part, count, M, K,
+                                      N, group, splits, magic_of(NBITS));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -455,39 +641,58 @@ const char* qt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// the largest M that affine_w4_matmul serves with w4_gemm_small_m (CUDA
-// cores); a larger M runs w4_gemm_tc (tensor cores)
-int affine_w4_matmul_small_m() { return SM_MAXM; }
-
 // x (M, K) bf16, codes (K/PER, N) int32, sf/zp (K/group, N) f32, y (M, N)
 // bf16, all contiguous; nbits 4 or 2 (PER = 32/nbits); K % group == 0,
-// group % PER == 0, x 16-byte aligned.
+// group % PER == 0, x 16-byte aligned; `sms` the card's SM count.  The
+// decode form runs where affine_w4_matmul_decode_plan gives splits > 0,
+// w4_gemm_tc elsewhere; where it gives splits > 1, `part` must hold its
+// part_floats floats (any contents) and `count` its counters ints, zero
+// (each call leaves them zero); the capacities say how much each holds,
+// and a launch that would need more is refused.
 int affine_w4_matmul(const void* x, const void* codes, const void* sf,
-                     const void* zp, void* y, int M, int K, int N, int group,
-                     int nbits, void* stream) {
+                     const void* zp, void* y, void* part, int part_floats,
+                     void* count, int counters, int M, int K, int N,
+                     int group, int nbits, int sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const uint16_t*>(x);
   const auto* cp = static_cast<const int32_t*>(codes);
   const auto* sp = static_cast<const float*>(sf);
   const auto* zpp = static_cast<const float*>(zp);
   auto* yp = static_cast<uint16_t*>(y);
-  if (nbits != 4 && nbits != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= SM_MAXM) {
-    dim3 grid((N + SM_BN - 1) / SM_BN);
-    if (nbits == 4)
-      w4_gemm_small_m<4><<<grid, SM_WARPS * 32, 0, s>>>(xp, cp, sp, zpp, yp,
-                                                        M, K, N, group);
-    else
-      w4_gemm_small_m<2><<<grid, SM_WARPS * 32, 0, s>>>(xp, cp, sp, zpp, yp,
-                                                        M, K, N, group);
-    return static_cast<int>(cudaGetLastError());
+  if ((nbits != 4 && nbits != 2) || group <= 0 || K % group ||
+      group % (32 / nbits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bsg::DecodePlan plan = w4_decode_plan(M, K, N, group, sms);
+  cudaError_t err;
+  if (plan.splits) {
+    if (plan.splits > 1 &&
+        (part == nullptr || count == nullptr ||
+         part_floats < plan.part_floats || counters < plan.counters))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto* pp = static_cast<float*>(part);
+    auto* cnt = static_cast<int*>(count);
+    err = nbits == 4 ? launch_decode<4>(xp, cp, sp, zpp, yp, pp, cnt, M, K, N,
+                                        group, plan.splits, s)
+                     : launch_decode<2>(xp, cp, sp, zpp, yp, pp, cnt, M, K, N,
+                                        group, plan.splits, s);
+    return static_cast<int>(err);
   }
-  const int tile_m = pick_tile_m(M, N);
-  const cudaError_t err =
-      nbits == 4
-          ? launch_tc_tile<4>(xp, cp, sp, zpp, yp, M, K, N, group, tile_m, s)
-          : launch_tc_tile<2>(xp, cp, sp, zpp, yp, M, K, N, group, tile_m, s);
+  const int tile_m = pick_tile_m(M, N, TC_BN, sms);
+  err = nbits == 4
+            ? launch_tc_tile<4>(xp, cp, sp, zpp, yp, M, K, N, group, tile_m, s)
+            : launch_tc_tile<2>(xp, cp, sp, zpp, yp, M, K, N, group, tile_m, s);
   return static_cast<int>(err);
+}
+
+// w4_decode_plan of that call: plan[0..3] = splits (0: w4_gemm_tc),
+// workspace floats, counters, rows a split is counted in (the group).
+void affine_w4_matmul_decode_plan(int M, int K, int N, int group, int sms,
+                                  int* plan) {
+  const bsg::DecodePlan p = w4_decode_plan(M, K, N, group, sms);
+  plan[0] = p.splits;
+  plan[1] = p.part_floats;
+  plan[2] = p.counters;
+  plan[3] = p.stage_rows;
 }
 
 }  // extern "C"

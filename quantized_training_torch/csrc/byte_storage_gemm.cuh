@@ -223,6 +223,78 @@ __device__ __forceinline__ void issue_step(
   }
 }
 
+// The end of a decode-form block (here and in affine_w4_matmul.cu's
+// w4_gemm_decode): the eight warps' sums, acc[j] the lane's mma j, whose A
+// rows g and g + 8 are the block's columns col(j) and col(j) + 1 (col(j)
+// even) and whose tokens are 2t and 2t + 1, meet in shared memory in warp
+// order; with splits > 1 each block writes its f32 partial to `part`, and
+// the last block of the column tile to arrive (a counter, which it resets)
+// adds the splits' partials in split order; each output is rounded once to
+// bf16: the same bits from every call, no atomics on the output.  The
+// caller's copies have landed; `smem` holds DC_WARPS * DC_OUT floats.
+template <class ColFn>
+__device__ __forceinline__ void decode_finish(
+    const float (&acc)[8][4], ColFn col, uint8_t* smem,
+    uint16_t* __restrict__ y, float* __restrict__ part,
+    int* __restrict__ count, int tile, int split, int splits, int tiles,
+    int n0, int M, int N) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  __syncthreads();  // every ring is free
+
+  // the warps' sums, in warp order: red[warp][token][column]
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float* r = red + warp * DC_OUT + 2 * t * DC_BN + col(j);
+    *reinterpret_cast<float2*>(r) = make_float2(acc[j][0], acc[j][2]);
+    *reinterpret_cast<float2*>(r + DC_BN) = make_float2(acc[j][1], acc[j][3]);
+  }
+  __syncthreads();
+  float4 sum = reinterpret_cast<const float4*>(red)[tid];
+#pragma unroll
+  for (int w = 1; w < DC_WARPS; ++w) {
+    const float4 v = reinterpret_cast<const float4*>(red + w * DC_OUT)[tid];
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+
+  if (splits > 1) {
+    // this split's partial; the last block of the tile to arrive adds them
+    float4* mine = reinterpret_cast<float4*>(
+        part + (static_cast<size_t>(split) * tiles + tile) * DC_OUT);
+    mine[tid] = sum;
+    __threadfence();
+    __syncthreads();
+    __shared__ int last;
+    if (tid == 0) last = atomicAdd(count + tile, 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          part + (static_cast<size_t>(sp) * tiles + tile) * DC_OUT) + tid);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    if (tid == 0) count[tile] = 0;  // ready for the next call
+  }
+  const int tok = tid / (DC_BN / 4), n = n0 + 4 * (tid % (DC_BN / 4));
+  if (tok < M) {
+    uint16_t* dst = y + static_cast<size_t>(tok) * N + n;
+    const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < N) dst[e] = float_to_bf16_bits(v[e]);
+  }
+}
+
 template <class Dec, int kScaleRows>
 __global__ void __launch_bounds__(DC_THREADS, DC_MIN_BLOCKS)
 gemm_decode(const uint16_t* __restrict__ x, const int8_t* __restrict__ codes,
@@ -333,59 +405,8 @@ gemm_decode(const uint16_t* __restrict__ x, const int8_t* __restrict__ codes,
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // every ring is free
-
-  // the warps' sums, in warp order: red[warp][token][column]
-  float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = 16 * g + 2 * j;
-    float* r = red + warp * DC_OUT + 2 * t * DC_BN + col;
-    *reinterpret_cast<float2*>(r) = make_float2(acc[j][0], acc[j][2]);
-    *reinterpret_cast<float2*>(r + DC_BN) = make_float2(acc[j][1], acc[j][3]);
-  }
-  __syncthreads();
-  float4 sum = reinterpret_cast<const float4*>(red)[tid];
-#pragma unroll
-  for (int w = 1; w < DC_WARPS; ++w) {
-    const float4 v = reinterpret_cast<const float4*>(red + w * DC_OUT)[tid];
-    sum.x += v.x;
-    sum.y += v.y;
-    sum.z += v.z;
-    sum.w += v.w;
-  }
-
-  if (splits > 1) {
-    // this split's partial; the last block of the tile to arrive adds them
-    float4* mine = reinterpret_cast<float4*>(
-        part + (static_cast<size_t>(split) * tiles + tile) * DC_OUT);
-    mine[tid] = sum;
-    __threadfence();
-    __syncthreads();
-    __shared__ int last;
-    if (tid == 0) last = atomicAdd(count + tile, 1) == splits - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int sp = 0; sp < splits; ++sp) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(
-          part + (static_cast<size_t>(sp) * tiles + tile) * DC_OUT) + tid);
-      sum.x += v.x;
-      sum.y += v.y;
-      sum.z += v.z;
-      sum.w += v.w;
-    }
-    if (tid == 0) count[tile] = 0;  // ready for the next call
-  }
-  const int tok = tid / (DC_BN / 4), n = n0 + 4 * (tid % (DC_BN / 4));
-  if (tok < M) {
-    uint16_t* dst = y + static_cast<size_t>(tok) * N + n;
-    const float v[4] = {sum.x, sum.y, sum.z, sum.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (n + e < N) dst[e] = float_to_bf16_bits(v[e]);
-  }
+  decode_finish(acc, [&](int j) { return 16 * g + 2 * j; }, smem, y, part,
+                count, tile, split, splits, tiles, n0, M, N);
 }
 
 // ---- M > 8: tensor cores (wgmma) ------------------------------------------

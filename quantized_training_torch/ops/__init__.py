@@ -1,15 +1,16 @@
 """Kernels written by hand for Hopper (sources under ``csrc/``), each with
 its plain PyTorch version.  A wrapper takes the plain version for CPU
 tensors, launches its kernel for CUDA tensors and counts the launches in
-``<wrapper>.launches`` (the storage GEMM's M > 8 launches also in
+``<wrapper>.launches`` (the w4/w2 storage GEMM's launches of its
+``wgmma`` form, every M > 8, also in
 ``affine_storage.affine_matmul.prefill_launches``; the two-pass flash
 kernel in ``flash_attention.two_pass_launches``; the launches of either
 flash form that also saved the logsumexp for the backward in
 ``flash_attention.lse_launches``; the integer-dot and K^T forms of the
 int-KV decode in ``int_kv_decode_attention.tile_launches``; the rounding
 kernel's NormalFloat and cast forms also in
-``quantize_elemwise.nf_launches`` and ``cast_launches``; the MX8 and
-posit8 GEMMs' launches also by (M, K, N) in ``shape_launches``).
+``quantize_elemwise.nf_launches`` and ``cast_launches``; the three
+storage GEMMs' launches also by (M, K, N) in ``shape_launches``).
 
 The submodules keep their names (``ops.flash_attention`` is the module);
 import the wrappers from them.
@@ -51,7 +52,8 @@ KERNEL_COUNTERS = {
 
 
 # kernel -> wrapper whose ``shape_launches`` tallies its launches by shape
-SHAPE_COUNTERS = {"mx_storage_matmul": mx_storage.mx_matmul,
+SHAPE_COUNTERS = {"affine_w4_matmul": affine_storage.affine_matmul,
+                  "mx_storage_matmul": mx_storage.mx_matmul,
                   "posit_storage_matmul": posit_storage.posit_matmul}
 
 

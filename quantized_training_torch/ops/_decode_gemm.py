@@ -1,10 +1,13 @@
-"""The host side of the byte-storage GEMMs' decode form (M <= 8,
-``csrc/byte_storage_gemm.cuh:gemm_decode``), shared by
-``mx_storage.mx_matmul`` and ``posit_storage.posit_matmul``: the plan of a
-launch and the workspace and counters a launch with split K needs.
+"""The host side of the storage GEMMs' decode forms (M <= 8): kernels 9
+and 10's ``csrc/byte_storage_gemm.cuh:gemm_decode`` (``mx_storage.mx_matmul``,
+``posit_storage.posit_matmul``) and kernel 5's
+``csrc/affine_w4_matmul.cu:w4_gemm_decode``
+(``affine_storage.affine_matmul``): the plan of a launch and the workspace
+and counters a launch with split K needs.
 
-The plan (how many blocks split K, how much workspace they need) is the
-kernel library's own ``bsg::decode_plan``, exported as
+The plan (how many blocks split K, how much workspace they need, 0 splits
+where the decode form does not serve the call) is the kernel library's
+own (``bsg::decode_plan``, kernel 5's ``w4_decode_plan``), exported as
 ``<library>_decode_plan`` and asked once a shape; the launch computes it
 again and refuses a workspace smaller than it needs.  With more than one
 split each block writes an f32 partial of its outputs to the workspace, and
@@ -30,8 +33,10 @@ def decode_plan(plan_fn, device: torch.device, M: int, K: int, N: int,
                 param: int) -> Tuple[int, int, int, int, int]:
     """(splits, workspace floats, counters, rows a stage, SMs) of an
     (M, K) x (K, N) launch on ``device``, from the library's
-    ``plan_fn(M, K, N, param, sms, plan)``; splits 0 where the decode form
-    does not serve the call."""
+    ``plan_fn(M, K, N, param, sms, plan)`` (param: the MX block size, the
+    posit8 es or kernel 5's group; kernel 5's "rows a stage" are its
+    group, the unit its splits take); splits 0 where the decode form does
+    not serve the call."""
     key = (plan_fn.__name__, device.index, M, K, N, param)
     plan = _PLANS.get(key)
     if plan is None:

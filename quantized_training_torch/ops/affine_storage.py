@@ -20,6 +20,7 @@ activation permutation :func:`_plane_major_x`.
 """
 
 import ctypes
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -29,6 +30,7 @@ from ..qspec import QuantizationSpec
 from ..quantize.fake_quant import _group_affine_qparams
 from ..quantize.ops import expand_scale
 from . import _cuda
+from ._decode_gemm import decode_args, decode_plan
 
 __all__ = ["affine_spec", "pack_affine_weights", "plane_pack",
            "expand_w2_words_to_w4", "affine_matmul", "affine_matmul_plain",
@@ -135,11 +137,12 @@ def _lib():
     lib = _cuda.load("affine_w4_matmul")
     if lib.affine_w4_matmul.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.affine_w4_matmul.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                         ci, vp]
+        lib.affine_w4_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, ci,
+                                         ci, ci, ci, ci, ci, ci, vp]
         lib.affine_w4_matmul.restype = ci
-        lib.affine_w4_matmul_small_m.argtypes = []
-        lib.affine_w4_matmul_small_m.restype = ci
+        lib.affine_w4_matmul_decode_plan.argtypes = [
+            ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.affine_w4_matmul_decode_plan.restype = None
     return lib
 
 
@@ -149,9 +152,14 @@ def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
 
     CPU tensors take :func:`affine_matmul_plain`; CUDA tensors launch
     ``csrc/affine_w4_matmul.cu`` (bf16 x and output, nbits 4 or 2), and
-    anything the kernel does not take raises.  An M above the library's
-    ``affine_w4_matmul_small_m()`` (8; prefill) runs the tensor-core kernel
-    and is counted also in ``affine_matmul.prefill_launches``.
+    anything the kernel does not take raises.  The library's decode plan
+    (``affine_w4_matmul_decode_plan``, asked through ``_decode_gemm``)
+    picks the form: M <= 8 at a group that is a multiple of 16 runs the
+    decode form (``mma.sync``, K split over blocks); every other call the
+    ``wgmma`` form (``w4_gemm_tc``), also counted in
+    ``affine_matmul.prefill_launches`` (every M > 8, the prefill, and M
+    <= 8 at a group such as w4's 8).  Each launch is also tallied by its
+    (M, K, N) in ``affine_matmul.shape_launches``.
     """
     if x.device.type == "cpu":
         return affine_matmul_plain(x, packed, sf, zp, nbits=nbits,
@@ -184,19 +192,26 @@ def affine_matmul(x, packed, sf, zp, *, nbits=4, group_size=128):
         raise ValueError("affine_matmul kernel: " + "; ".join(problems))
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _lib()
+    stream = _cuda.stream_ptr(x.device)
+    plan_fn = lib.affine_w4_matmul_decode_plan
+    splits = decode_plan(plan_fn, x.device, M, K, N, group_size)[0]
+    part, floats, count, ints, sms = decode_args(plan_fn, x.device, stream,
+                                                 M, K, N, group_size)
     err = lib.affine_w4_matmul(
         x.data_ptr(), packed.data_ptr(), sf.data_ptr(), zp.data_ptr(),
-        y.data_ptr(), M, K, N, group_size, nbits,
-        _cuda.stream_ptr(x.device))
+        y.data_ptr(), part, floats, count, ints, M, K, N, group_size, nbits,
+        sms, stream)
     _cuda.check(lib, err, "affine_w4_matmul")
     affine_matmul.launches += 1
-    if M > lib.affine_w4_matmul_small_m():
+    if not splits:
         affine_matmul.prefill_launches += 1
+    affine_matmul.shape_launches[(M, K, N)] += 1
     return y
 
 
 affine_matmul.launches = 0
 affine_matmul.prefill_launches = 0
+affine_matmul.shape_launches = Counter()
 
 
 # ---------------------------------------------------------------------------

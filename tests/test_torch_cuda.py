@@ -4,11 +4,11 @@ unpacked 8-bit Adam leaf launches kernel 13 and a packed one kernel 14,
 the int8 decode attention's integer-dot and K^T forms launch their kernel,
 the flash forward runs every form on the card within its bounds,
 and the storage GEMMs, the KIVI decode and the dequant stream launch their
-kernels and agree with their plain versions (the w4/w2 GEMM's tensor-core
-path at ragged shapes also bit for bit on the identity's rows, as the MX8
-and posit8 GEMMs in both forms, the decode form at M <= 8 and the wgmma
-form above it, at every block size and es, with odd N and misaligned
-codes and scales), the rounding kernel takes
+kernels and agree with their plain versions (the w4/w2 GEMM in both its
+forms, the decode form at M <= 8 and the wgmma form above it and at w4
+group 8, at ragged shapes also bit for bit on the identity's rows, as the
+MX8 and posit8 GEMMs in both forms, at every group, block size and es,
+with odd N and misaligned codes and scales), the rounding kernel takes
 the NormalFloat codebooks and native casts bit for bit, and both decode
 kernels take every instantiated GQA group and head dim (and refuse the
 rest).  Marked
@@ -235,6 +235,149 @@ def test_storage_gemm_unaligned_operands_on_cuda(cuda_device):
             torch.cuda.synchronize()
             assert torch.allclose(got.float(), want.float(), atol=1e-4,
                                   rtol=1e-2), (fmt, M)
+
+
+# ---- kernel 5's decode form (M <= 8, mma.sync) ------------------------------
+_W4_DECODE = [(fmt, group) for fmt in ("w4", "w2a16", "w2x4")
+              for group in (16, 32, 64, 128)]
+
+
+def _eye_rows(rows, K, device):
+    eye = torch.zeros((len(rows), K), dtype=torch.bfloat16, device=device)
+    eye[torch.arange(len(rows)), torch.tensor(rows)] = 1
+    return eye
+
+
+def _decode_launch(fn, call, M, K, N):
+    """call() once, as one launch of the decode form (no wgmma launch) at
+    its own (M, K, N)."""
+    before = (fn.launches, fn.prefill_launches, fn.shape_launches[(M, K, N)])
+    out = call()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.prefill_launches,
+            fn.shape_launches[(M, K, N)]) == (before[0] + 1, before[1],
+                                              before[2] + 1)
+    return out
+
+
+@pytest.mark.parametrize("fmt,group", _W4_DECODE)
+def test_w4_decode_identity_rows_every_m_and_repeat(cuda_device, fmt, group):
+    """Kernel 5's decode form: the identity's rows give the plain version's
+    bf16 weight rows bit for bit (8 rows a call, the first and last rows of
+    K, at K=1024, split over 8 blocks, and K=128, one block); every M from
+    1 to 8 within 1e-4 + 1e-2*|plain| (chip_smoke.py's bound), one decode
+    launch a call, and a repeated call bit-equal (K=4096: 16 splits)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    fn = aff.affine_matmul
+    for K, N in [(1024, 256), (128, 384)]:
+        c, sf, zp, nbits = _affine_pack(fmt, K, N, group, gen, cuda_device)
+        kw = dict(nbits=nbits, group_size=group)
+        w_bf16 = aff._dequant_planes(c, sf, zp, nbits, group).bfloat16()
+        for r0 in sorted({0, 64, K - 128, K - 64, K - 8}):
+            rows = list(range(r0, r0 + 8))
+            eye = _eye_rows(rows, K, cuda_device)
+            got = _decode_launch(fn, lambda: fn(eye, c, sf, zp, **kw), 8, K,
+                                 N)
+            assert torch.equal(got.view(torch.int16),
+                               w_bf16[rows].view(torch.int16)), (K, r0)
+    K, N = 4096, 256
+    c, sf, zp, nbits = _affine_pack(fmt, K, N, group, gen, cuda_device)
+    kw = dict(nbits=nbits, group_size=group)
+    for M in range(1, 9):
+        x = torch.randn((M, K), generator=gen, device=cuda_device).bfloat16()
+        got = _decode_launch(fn, lambda: fn(x, c, sf, zp, **kw), M, K, N)
+        want = aff.affine_matmul_plain(x, c, sf, zp, **kw)
+        assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                              rtol=1e-2), M
+        again = fn(x, c, sf, zp, **kw)
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16)), M
+
+
+@pytest.mark.parametrize("fmt", ["w4", "w2a16", "w2x4"])
+def test_w4_decode_odd_shapes_and_offsets(cuda_device, fmt):
+    """Kernel 5's decode form at odd N (not a multiple of 4: 4-byte copies;
+    32064, Phi-3's lm_head), K = 17920 and 13824 (Phi-3's and the 13B's
+    down), and with codes, sf and zp 4 bytes past 16-byte alignment: within
+    the bound at M 1 and 8, the identity's first and last 8 rows bit for
+    bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    fn = aff.affine_matmul
+    for K, N, group in [(512, 77, 64), (256, 1003, 32), (256, 32064, 64),
+                        (17920, 136, 64), (13824, 200, 128)]:
+        packed = _affine_pack(fmt, K, N, group, gen, cuda_device)
+        kw = dict(nbits=packed[3], group_size=group)
+        variants = [packed[:3]]
+        if N % 4 == 0:
+            shifted = []
+            for t in packed[:3]:
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype,
+                                  device=cuda_device)
+                shifted.append(buf[1:].view(t.shape).copy_(t))
+            assert all(t.data_ptr() % 16 for t in shifted)
+            variants.append(tuple(shifted))
+        w_bf16 = aff._dequant_planes(*packed[:3], packed[3],
+                                     group).bfloat16()
+        for p in variants:
+            for M in (1, 8):
+                x = torch.randn((M, K), generator=gen,
+                                device=cuda_device).bfloat16()
+                got = _decode_launch(fn, lambda: fn(x, *p, **kw), M, K, N)
+                want = aff.affine_matmul_plain(x, *p, **kw)
+                assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                                      rtol=1e-2), (K, N, M)
+            for rows in (list(range(8)), list(range(K - 8, K))):
+                got = fn(_eye_rows(rows, K, cuda_device), *p, **kw)
+                assert torch.equal(got.view(torch.int16),
+                                   w_bf16[rows].view(torch.int16)), (K, N)
+
+
+@pytest.mark.parametrize("fmt", ["w4", "w2a16"])
+def test_w4_decode_extreme_qparams_bit_equal(cuda_device, fmt):
+    """The decode form's weight at the edges of f32: groups with a zero
+    point of 2^-110 or -2^-120, a scale of 2^101, zero points 0, and the
+    groups around them: the identity's rows bit for bit, and M=8 within
+    the bound."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    fn = aff.affine_matmul
+    K, N = 1024, 256
+    c, sf, zp, nbits = _affine_pack(fmt, K, N, 64, gen, cuda_device)
+    zp[3, 5], zp[4, 130], sf[6, 9] = 2.0 ** -110, -2.0 ** -120, 2.0 ** 101
+    zp[7] = 0
+    kw = dict(nbits=nbits, group_size=64)
+    w_bf16 = aff._dequant_planes(c, sf, zp, nbits, 64).bfloat16()
+    for r0 in range(128, 576, 8):
+        rows = list(range(r0, r0 + 8))
+        got = _decode_launch(fn, lambda: fn(_eye_rows(rows, K, cuda_device),
+                                            c, sf, zp, **kw), 8, K, N)
+        assert torch.equal(got.view(torch.int16),
+                           w_bf16[rows].view(torch.int16)), r0
+    x = torch.randn((8, K), generator=gen, device=cuda_device).bfloat16()
+    got = fn(x, c, sf, zp, **kw)
+    want = aff.affine_matmul_plain(x, c, sf, zp, **kw)
+    assert torch.allclose(got.float(), want.float(), atol=1e-4, rtol=1e-2)
+
+
+def test_w4_group_8_at_decode_runs_the_wgmma_form(cuda_device):
+    """w4 at group 8 holds no whole 16-deep k step, so M <= 8 runs the
+    wgmma form (w4_gemm_tc, counted in prefill_launches; TMA reads the rows
+    past M as zero): within the bound, the identity's rows bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    fn = aff.affine_matmul
+    K, N = 512, 200
+    c, sf, zp, nbits = _affine_pack("w4", K, N, 8, gen, cuda_device)
+    kw = dict(nbits=nbits, group_size=8)
+    for M in (1, 5, 8):
+        x = torch.randn((M, K), generator=gen, device=cuda_device).bfloat16()
+        before = fn.prefill_launches
+        got = _launches(fn, lambda: fn(x, c, sf, zp, **kw))
+        assert fn.prefill_launches == before + 1
+        want = aff.affine_matmul_plain(x, c, sf, zp, **kw)
+        assert torch.allclose(got.float(), want.float(), atol=1e-4,
+                              rtol=1e-2), M
+    w_bf16 = aff._dequant_planes(c, sf, zp, nbits, 8).bfloat16()
+    rows = list(range(K - 8, K))
+    got = fn(_eye_rows(rows, K, cuda_device), c, sf, zp, **kw)
+    assert torch.equal(got.view(torch.int16), w_bf16[rows].view(torch.int16))
 
 
 # ---- kernels 9 and 10: the decode form (M <= 8) and the wgmma form ---------

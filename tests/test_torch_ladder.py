@@ -42,6 +42,16 @@ ARCH = dict(vocab_size=1024, hidden_size=256, intermediate_size=688,
 B, S = 2, 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the tier-1 run puts several test processes on the
+    cores, and the port's side of these tests is many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qc(pkg_qconfig, pkg_quantconfig, cats):
     return pkg_quantconfig(global_qconfig=pkg_qconfig.from_strs(
         activation="posit8_1", weight="posit8_1")).with_fusion(forward=cats)
@@ -50,13 +60,16 @@ def _qc(pkg_qconfig, pkg_quantconfig, cats):
 @pytest.fixture(scope="module")
 def weights():
     """bench.py's weight step in both packages: JAX init, fold at the
-    posit8_1 weight spec; the port folds its own copy of the init."""
+    posit8_1 weight spec (compiled as one program: on the CPU its bits are
+    the eager fold's, and a tenth of its time); the port folds its own copy
+    of the init."""
     jcfg = JaxLlamaConfig(**ARCH)
     ids = jnp.zeros((1, S), jnp.int32)
     params = jax.jit(JaxLlama(jcfg, None).init)(jax.random.PRNGKey(0),
                                                ids)["params"]
     rung = dict(JAX_LADDER)["residual_fusion"]
-    jfold = jax_fold(params, _qc(JaxQConfig, JaxQuantConfig, rung))
+    jqc = _qc(JaxQConfig, JaxQuantConfig, rung)
+    jfold = jax.jit(lambda p: jax_fold(p, jqc))(params)
     tfold = qt.fold_quantized_weights(
         qt.params_from_jax(jax.tree_util.tree_map(np.asarray, params)),
         _qc(qt.QConfig, qt.QuantConfig, [c.value for c in rung]))
@@ -79,6 +92,14 @@ def _jax_logits(jfold, jqc):
         {"params": jfold}, jnp.asarray(_ids(), jnp.int32)))
 
 
+@pytest.fixture(scope="module")
+def jax_rungs():
+    """The reference's logits per rung, as each rung's test computed them
+    (under the general unit rounding), shared with the later tests of the
+    same rung."""
+    return {}
+
+
 def _port_logits(tfold, tqc):
     model = qt.LlamaForCausalLM(qt.LlamaConfig(**ARCH), tqc, device="cpu")
     model.load_state_dict(tfold)
@@ -88,7 +109,7 @@ def _port_logits(tfold, tqc):
 
 
 @pytest.mark.parametrize("rung", [r for r, _ in JAX_LADDER])
-def test_ladder_logits_match_jax(weights, rung, monkeypatch):
+def test_ladder_logits_match_jax(weights, jax_rungs, rung, monkeypatch):
     """Bit-equal logits: the port rounds at the same sites, in the same
     order, with the same f32 products as the reference."""
     jfold, tfold = weights
@@ -112,7 +133,7 @@ def test_ladder_logits_match_jax(weights, rung, monkeypatch):
     monkeypatch.setattr(jax_numerics, "quantize_fn_unit",
                         jax_numerics.quantize_fn)
 
-    want = _jax_logits(jfold, jqc)
+    want = jax_rungs[rung] = _jax_logits(jfold, jqc)
     got = _port_logits(tfold, tqc)
     np.testing.assert_array_equal(got, want)
     flash = 2 if rung in ("activation_fusion", "layernorm_fusion",
@@ -140,10 +161,12 @@ class DroppingQuantConfig:
 @pytest.mark.parametrize("site", [
     "lm_head", "model.layers_1.mlp.down_proj",
     "model.layers_0.self_attn.o_proj", "flash p"])
-def test_ladder_comparison_catches_a_dropped_site(weights, site, monkeypatch):
+def test_ladder_comparison_catches_a_dropped_site(weights, jax_rungs, site,
+                                                  monkeypatch):
     """At residual_fusion, a port that skips one rounding site (a GEMM
     input, the o_proj rounding in the flash epilogue, or the flash
-    probabilities) no longer matches the reference."""
+    probabilities) no longer matches the reference (its logits from the
+    residual_fusion rung's test where that ran first)."""
     jfold, tfold = weights
     monkeypatch.setattr(jax_numerics, "quantize_fn_unit",
                         jax_numerics.quantize_fn)
@@ -152,7 +175,9 @@ def test_ladder_comparison_catches_a_dropped_site(weights, site, monkeypatch):
         monkeypatch.setattr(t_llama, "quantize_fn_unit", lambda dtype: None)
     else:
         tqc = DroppingQuantConfig(tqc, site)
-    want = _jax_logits(jfold, jqc)
+    want = jax_rungs.get("residual_fusion")
+    if want is None:
+        want = jax_rungs["residual_fusion"] = _jax_logits(jfold, jqc)
     got = _port_logits(tfold, tqc)
     assert not np.array_equal(got, want)
 

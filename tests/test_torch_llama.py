@@ -34,6 +34,16 @@ ARCH = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
             use_flash_attention=True, use_fused_kivi=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the tier-1 run puts several test processes on the
+    cores, and these tests are many small ops."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -55,6 +65,26 @@ def pair():
     return jmodel, {"params": slim, "storage": storage}, tmodel
 
 
+@pytest.fixture(scope="module")
+def jax_steps(pair):
+    """The JAX model's prefill (compiled once a prompt length) and decode
+    step (compiled once, the position traced), jitted as the reference's
+    own generate() jits its decode step, and shared by the cases."""
+    jmodel = pair[0]
+
+    def prefill(variables, ids, S):
+        return jmodel.apply(variables, ids, use_cache=True, cache_index=0,
+                            prompt_len=S, mutable=["cache"])
+
+    def step(variables, cache, tok, pos):
+        logits, upd = jmodel.apply({**variables, "cache": cache}, tok,
+                                   use_cache=True, cache_index=pos,
+                                   mutable=["cache"])
+        return logits, upd["cache"]
+
+    return jax.jit(prefill, static_argnums=2), jax.jit(step)
+
+
 def _prompt(S, seed=0):
     return np.random.default_rng(seed).integers(0, 256, (1, S)).astype(
         np.int32)
@@ -68,11 +98,11 @@ ATOL, RTOL = 0.15, 0.05
 
 
 @pytest.mark.parametrize("S", [128, 40])
-def test_prefill_and_decode_logits_match_jax(pair, S):
-    jmodel, jvars, tmodel = pair
+def test_prefill_and_decode_logits_match_jax(pair, jax_steps, S):
+    _, jvars, tmodel = pair
+    jprefill, jstep = jax_steps
     ids = _prompt(S)
-    jl, upd = jmodel.apply(jvars, jnp.asarray(ids), use_cache=True,
-                           cache_index=0, prompt_len=S, mutable=["cache"])
+    jl, upd = jprefill(jvars, jnp.asarray(ids), S)
     tl, caches = tmodel(torch.from_numpy(ids).long(), use_cache=True,
                         prompt_len=S)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
@@ -80,11 +110,8 @@ def test_prefill_and_decode_logits_match_jax(pair, S):
     jcache = upd["cache"]
     tok = 7
     for step in range(4):
-        jl, upd = jmodel.apply({**jvars, "cache": jcache},
-                               jnp.asarray([[tok]], jnp.int32),
-                               use_cache=True, cache_index=S + step,
-                               mutable=["cache"])
-        jcache = upd["cache"]
+        jl, jcache = jstep(jvars, jcache, jnp.asarray([[tok]], jnp.int32),
+                           jnp.asarray(S + step, jnp.int32))
         tl, caches = tmodel(torch.tensor([[tok]]), use_cache=True,
                             caches=caches, cache_index=S + step)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,

@@ -170,3 +170,22 @@ def test_kernel_wrapper_rejects_other_devices():
     sf = torch.ones((1, 16), device="meta")
     with pytest.raises(ValueError, match="device"):
         port_affine.affine_matmul(x, codes, sf, sf, nbits=4, group_size=64)
+
+
+def test_storage_gemm_launches_tallied_by_shape():
+    """Kernel 5's launches are tallied by (M, K, N) beside kernels 9 and
+    10's (``ops.shape_launch_counts``), cleared with the other counters;
+    the plain version on the CPU launches nothing and counts nothing."""
+    from quantized_training_torch import ops
+    fn = port_affine.affine_matmul
+    assert ops.SHAPE_COUNTERS["affine_w4_matmul"] is fn
+    ops.reset_launch_counts()
+    fn.shape_launches[(8, 64, 16)] += 1
+    assert ops.shape_launch_counts()["affine_w4_matmul"] == {(8, 64, 16): 1}
+    ops.reset_launch_counts()
+    codes, sf, zp = port_affine.pack_affine_weights(torch.ones((64, 16)), 4,
+                                                    64)
+    port_affine.affine_matmul(torch.ones((2, 64), dtype=torch.bfloat16),
+                              codes, sf, zp, nbits=4, group_size=64)
+    assert ops.shape_launch_counts()["affine_w4_matmul"] == {}
+    assert (fn.launches, fn.prefill_launches) == (0, 0)

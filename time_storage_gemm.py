@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the storage GEMMs of one or more checkouts of the port on one NVIDIA
 GPU, so that two versions of a kernel are compared within one run: kernel 5
-(the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at its prefill shapes, and
-kernels 9 and 10 (the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu``
+(the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at its prefill shapes and
+at its decode shapes (M = 8 and 1 at LLaMA-2 7B's, Phi-3-medium's qkv and
+down, the w2 format's 13B qkv), and kernels 9 and 10 (the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu``
 and ``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes and at
 M > 8 (its qkv and down at a 2048-token prefill, its qkv at one slot's
 128-token prompt):
@@ -19,14 +20,16 @@ checks one call at each shape against the plain version (1e-4 +
 of a call, the mean over 200 calls queued back to back without a wait
 (the card runs behind, so the host sets that pace).  Every weight is seeded, group
 or MX block 64, posit8 es 1.  Then it serves chip_smoke.py's posit8_kv4
-and mx8_kv4 format arms (2 layers at 7B width, 8 slots of 128 prompt
-tokens): the median of 5 prefills' wall time, one more prefill traced
-(``torch.profiler``) for the device's busy time and the device time of the
-byte-storage GEMMs (kernels in ``bsg::``, 10 launches at M = 1024 and the
-lm_head's at M = 8), then the median of 20 decode steps' wall time and of
+and mx8_kv4 format arms (2 layers at 7B width) and its 32-layer 7B w4a16
+model with the int4 cache (the serving phase's), each with 8 slots of 128
+prompt tokens: the median of 5 prefills' wall time, one more prefill
+traced (``torch.profiler``) for the device's busy time and the device time
+of the storage GEMMs (kernels in ``bsg::`` for the byte formats, 10
+launches at M = 1024 and the lm_head's at M = 8; kernel 5's ``w4_gemm``
+kernels for w4a16), then the median of 20 decode steps' wall time and of
 their host time (from the step's call until it has been queued, before
 the wait for the card), and one more step traced for the device's busy
-time, its idle share and the byte-storage GEMMs' device time.
+time, its idle share and the storage GEMMs' device time.
 ``--steps-only`` serves the arms and times no shape, for many alternating
 runs (P A P A ...) in one call; ``--match TEXT`` times only the shapes
 whose label holds TEXT and serves no arm.  Prints a line
@@ -46,7 +49,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # (label, format, M, K, N): kernel 5 at LLaMA-2 7B's qkv and down at the
 # largest prefill bucket and its qkv at the smallest, Phi-3-medium's
-# gate/up, and the w2 format's two prefill rows of chip_smoke.py; kernels 9
+# gate/up, and the w2 format's two prefill rows of chip_smoke.py; at its
+# decode rows (the 7B's five shapes at M = 8 and its qkv at M = 1,
+# Phi-3's qkv and down, the w2 format's 13B qkv); kernels 9
 # and 10 at the 7B decode shapes (qkv fused, o, gate and up, down, lm_head)
 # and at chip_smoke.py's M > 8 rows (TC_SHAPES)
 SHAPES = [("7B qkv", "w4", 2048, 4096, 12288),
@@ -55,6 +60,16 @@ SHAPES = [("7B qkv", "w4", 2048, 4096, 12288),
           ("Phi-3 gate/up", "w4", 2048, 5120, 17920),
           ("w2, 7B qkv", "w2", 2048, 4096, 12288),
           ("w2, 13B down", "w2", 2048, 13824, 5120)]
+SHAPES += [(f"w4 decode {label}", "w4", M, K, N)
+           for label, K, N, Ms in [("qkv", 4096, 12288, (8, 1)),
+                                   ("o", 4096, 4096, (8,)),
+                                   ("gate/up", 4096, 11008, (8,)),
+                                   ("down", 11008, 4096, (8,)),
+                                   ("lm_head", 4096, 32000, (8,)),
+                                   ("Phi-3 qkv", 5120, 7680, (8,)),
+                                   ("Phi-3 down", 17920, 5120, (8,))]
+           for M in Ms]
+SHAPES += [("w2 decode 13B qkv", "w2", 8, 5120, 15360)]
 for _fmt in ("mx8", "posit8"):
     SHAPES += [(f"{_fmt} decode {label}", _fmt, M, K, N)
                for label, K, N, Ms in [("qkv", 4096, 12288, (8, 1)),
@@ -125,17 +140,21 @@ def time_one(root, steps_only=False, match=None):
                          ms=timer(lambda: call(x)), host_us=host_us))
         del w, call, plain, x, got, want
     steps = [] if match is not None else [
-        decode_step(torch, smoke, fmt) for fmt in ("posit8", "mx8")]
+        decode_step(torch, smoke, fmt, layers, watch)
+        for fmt, layers, watch in (("posit8", 2, "bsg::"), ("mx8", 2, "bsg::"),
+                                   ("w4a16", 32, "w4_gemm"))]
     print(json.dumps({"root": root, "rows": rows, "decode_steps": steps}),
           flush=True)
 
 
-def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
-    """chip_smoke.py's format arm ``fmt``_kv4 at 2 layers: prefills of B
-    slots of S tokens (5 timed, one traced), then ``steps`` timed decode
-    steps (wall and host time), one more traced."""
+def decode_step(torch, smoke, fmt, layers, watch, B=8, S=128, steps=20):
+    """chip_smoke.py's LLaMA-2 7B-width model in storage format ``fmt`` at
+    ``layers`` layers with the int4 cache: prefills of B slots of S tokens
+    (5 timed, one traced), then ``steps`` timed decode steps (wall and host
+    time), one more traced; the storage GEMMs are the kernels whose names
+    hold ``watch``."""
     import quantized_training_torch as qt
-    cfg, qc = smoke.serving_config(qt, 2, fmt, "int4")
+    cfg, qc = smoke.serving_config(qt, layers, fmt, "int4")
     model = qt.LlamaForCausalLM(cfg, qc, device="cuda")
     model.load_state_dict(qt.random_params(cfg, fmt, 64, seed=0,
                                            device="cuda"), assign=True)
@@ -155,7 +174,7 @@ def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
         walls.append((time.perf_counter() - t) * 1e3)
     prefill_ms = sorted(walls[1:])[2]
     pre = smoke.profile(torch, prefill, prefill_ms, "8-slot prefill",
-                        watch=("bsg::",)) or {}
+                        watch=(watch,)) or {}
     with torch.no_grad():
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times, host = [], []
@@ -176,14 +195,17 @@ def decode_step(torch, smoke, fmt, B=8, S=128, steps=20):
             model(tok, use_cache=True, caches=caches, cache_index=S + steps)
 
     prof = smoke.profile(torch, one_step, ms, "decode step",
-                         watch=("bsg::",)) or {}
-    return {"format": fmt, "prefill_ms": prefill_ms,
-            "prefill_busy_ms": pre.get("busy_ms"),
-            "prefill_storage_gemm_ms": pre.get("watched_ms", {}).get("bsg::"),
-            "decode_ms_per_step": ms, "host_ms_per_step": host_ms,
-            "busy_ms": prof.get("busy_ms"),
-            "idle_share": prof.get("idle_share"),
-            "storage_gemm_ms": prof.get("watched_ms", {}).get("bsg::")}
+                         watch=(watch,)) or {}
+    out = {"format": fmt, "layers": layers, "prefill_ms": prefill_ms,
+           "prefill_busy_ms": pre.get("busy_ms"),
+           "prefill_storage_gemm_ms": pre.get("watched_ms", {}).get(watch),
+           "decode_ms_per_step": ms, "host_ms_per_step": host_ms,
+           "busy_ms": prof.get("busy_ms"),
+           "idle_share": prof.get("idle_share"),
+           "storage_gemm_ms": prof.get("watched_ms", {}).get(watch)}
+    del model, caches, logits
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(roots, steps_only=False, match=None):
@@ -216,11 +238,13 @@ def main(roots, steps_only=False, match=None):
                   f"{r['ok']}", flush=True)
             ok = ok and r["ok"]
         for d in run["decode_steps"]:
-            print(f"{root}  {d['format']}_kv4 8-slot prefill: "
+            print(f"{root}  {d['format']}_kv4 ({d['layers']} layers) 8-slot "
+                  f"prefill: "
                   f"{d['prefill_ms']:.3f} ms wall, busy "
                   f"{d['prefill_busy_ms']} ms, storage GEMMs "
                   f"{d['prefill_storage_gemm_ms']} ms", flush=True)
-            print(f"{root}  {d['format']}_kv4 decode step: "
+            print(f"{root}  {d['format']}_kv4 ({d['layers']} layers) decode "
+                  f"step: "
                   f"{d['decode_ms_per_step']:.3f} ms wall, host "
                   f"{d['host_ms_per_step']:.3f} ms, busy "
                   f"{d['busy_ms']} ms, idle share {d['idle_share']}, "
