@@ -200,6 +200,18 @@ rows counts the launches at its own shape in its serving run
 int4 decode's device time).  The format phases (4b, 4c) run one layer and
 the train parity phase (7) one, where they ran two.
 
+Slice 14 redesigns kernel 8 (the KIVI decode, csrc/kivi_decode.cu:kivi_mma,
+which replaces the CUDA-core kivi_split and kivi_merge) for the tensor
+cores in every cache form: phase 1 requires mma.sync (HMMA) in its
+functions and fails on a spill or a C7512/C7513 warning in one; phase 2/3
+holds its dequant (``kivi_dequant_check``) to round_bf16(c * s) bit for
+bit for every code and finite bf16 scale, checks every form within
+KIVI_TOL (now also an empty main tier, main_len one token either side of a
+warp's and of the first block's end, and a repeated call bit for bit), its
+planted faults placed by the kernel's own plan (``kivi_launch_plan``), and
+times the 7B shape in each form (uint2, uint4, uint8) and Phi-3's beside an
+int64 sum of the same bytes (``stream_ms``).
+
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1821,12 +1833,14 @@ def training_kernel_phases(torch, timer):
 KIVI_SPEC = "uint{bits},qs=group_wise_affine,bs=32,ax={ax}"
 
 
-# The kernel rounds p to bf16 against each split's own max, the plain
-# version (the TPU kernel's rounding points) against the global max, so
-# the f32 sums before the one bf16 rounding of the V zero-point term
-# o2 = sum_t p_t bf16((mid - vz[t]) vs[t]) differ in their last bits;
-# where o2 lies near a rounding boundary the sides round it one bf16
-# step apart, over a whole 32-feature group.  That step is the error
+# The CUDA-core kernel of slices 4-13 rounded p to bf16 against each
+# split's own max, the plain version (the TPU kernel's rounding points)
+# against the global max, so the f32 sums before the one bf16 rounding of
+# the V zero-point term o2 = sum_t p_t bf16((mid - vz[t]) vs[t]) differed
+# in their last bits; where o2 lies near a rounding boundary the sides
+# round it one bf16 step apart, over a whole 32-feature group.  Slice 14's
+# tensor-core kernel rounds p against the global max, as the TPU does;
+# its sums still run in another order, so the same flips remain, rarer.  That step is the error
 # floor and scales with |o2 / l|, the weighted mean of (mid - vz) vs:
 # about 2 for bytes (mid 0, so -vz vs is the group's minimum), under 1
 # for packed uint2, about 0.2 for packed uint4.  So each form has its
@@ -1948,6 +1962,55 @@ def head_map_fault(plain, q, k_codes, *args, **kw):
     return plain(moved, k_codes, *args, **kw)[:, pos]
 
 
+def sdpa_over_cache_ms(torch, timer, q, cache, cfg, k_res, v_res):
+    """The library yardstick of the decode kernels 7 and 8: one
+    scaled_dot_product_attention over the dequantized cache (both tiers,
+    every slot visible), timed; the port never calls it."""
+    from quantized_training_torch.serving import kv_cache as kvc
+    kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), cfg)
+    kd = kd.transpose(1, 2).contiguous()
+    vd = vd.transpose(1, 2).contiguous()
+    mask = torch.ones((q.shape[0], 1, 1, kd.shape[2]), dtype=torch.bool,
+                      device=q.device)
+    q4 = q[:, :, None, :]
+    return timer(lambda: sdpa(torch, q4, kd, vd, attn_mask=mask))
+
+
+def kivi_stream(torch, cache, k_res, v_res):
+    """One PyTorch call that reads the bytes kernel 8 reads at full lengths
+    (code words or bytes, qparams, both rings; copied into one buffer): an
+    int64 sum, what one library call takes to stream them."""
+    flat = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in (*cache[:6], k_res, v_res)])
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    buf = flat.view(torch.int64)
+    return lambda: buf.sum()
+
+
+def kivi_dequant_phase(torch, failures):
+    """khat and vhat as kernel 8 makes them (its own dequant, through
+    kivi_dequant_check) against round_bf16(c * s), bit for bit, for every
+    code of each form and every finite bf16 scale."""
+    from quantized_training_torch.ops import kivi_attention as ka
+    bf16 = torch.bfloat16
+    s = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(
+        torch.int16).view(bf16)
+    s = s[s.float().isfinite()]
+    for bits, codes in ((2, range(-2, 2)), (4, range(-8, 8)),
+                        (None, range(256))):
+        c = torch.tensor(list(codes), dtype=torch.int32,
+                         device="cuda").repeat_interleave(s.numel())
+        ss = s.repeat(len(codes))
+        got = ka.kivi_dequant_check(c, ss, bits)
+        want = (c.float() * ss.float()).to(bf16)
+        bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        log(f"  dequant uint{bits or 8}: {bad} of {c.numel()} (code, scale) "
+            f"pairs differ from round_bf16(c * s)")
+        if bad:
+            failures.append(f"kivi_decode dequant uint{bits or 8} is not "
+                            "round_bf16(c * s)")
+
+
 def kivi_config(P, R, bits=2, pack=True):
     """llama7b_serving.py's KIVI cache (build, :140-145): K grouped along
     tokens, V along features, block 32."""
@@ -1987,19 +2050,27 @@ def storage_kernel_phases(torch, timer):
 
     # ---- fused KIVI decode (kernel 8): KIVI_TOL's per-form bounds --------
     log(f"phase 2/3: kivi_decode ({kivi_tolerances()})")
+    kivi_dequant_phase(torch, failures)
 
-    def split0_tokens(P, bits):
-        """The main-tier tokens of the kernel's first split: 32 word rows,
-        i.e. tokens s * P*bits/32 + [0, 32) of every plane s when packed,
-        tokens [0, 256) for bytes (csrc/kivi_decode.cu, Tier)."""
-        if bits is None:
-            return torch.arange(256, device=dev)
-        rows = P * bits // 32
-        return (torch.arange(32 // bits, device=dev)[:, None] * rows
-                + torch.arange(32, device=dev)[None, :]).reshape(-1)
+    def launch_plan(B, H, KV, D, P, R, bits):
+        """The kernel's own plan of this launch (kivi_decode_plan at the
+        card's SM count and occupancy)."""
+        cfg = kivi_config(P, R, bits or 2, bits is not None)
+        gP = P // cfg.k_spec.block_size
+        return ka.kivi_launch_plan(torch.device(dev, 0), B, H, KV, D, P, R,
+                                   gP, D // cfg.v_spec.block_size, bits)
+
+    def split0_tokens(B, H, KV, D, P, R, bits):
+        """The main-tier tokens of the kernel's first block (its four
+        warps' steps), from the kernel's own plan: every token where the
+        plan gives a pair one block."""
+        plan = launch_plan(B, H, KV, D, P, R, bits)
+        toks = [t for w, _ in ka.kivi_plan_tokens(plan, R, bits)[0]
+                for t in w]
+        return torch.tensor(sorted(toks), device=dev)
 
     max_err = 0.0
-    timed = None
+    timed = {}
     for B, H, KV, D, P, R, bits, pack in [
             (8, 32, 32, 128, 2048, 128, 2, True),
             (8, 32, 32, 128, 2048, 128, 4, True),
@@ -2020,24 +2091,40 @@ def storage_kernel_phases(torch, timer):
                                dtype=torch.int32),
                  torch.full((B,), P, dtype=torch.int32, device=dev)]
         if P == 2048:
-            # a slot just filled, short and long prompts, the edges
+            # a slot just filled, short and long prompts, the edges; then an
+            # empty main tier and one token either side of the first
+            # block's end and of a warp's (the plan's step edges)
+            plan = launch_plan(B, H, KV, D, P, R, bk)
+            warps = ka.kivi_plan_tokens(plan, R, bk)
+            warp_end = max(t % plan.rows for t in warps[0][0][0]) + 1
+            block_end = max(t % plan.rows for w, _ in warps[0]
+                            for t in w) + 1
             mains.insert(1, torch.tensor(
                 [2048, 1500, 700, 64, 1, 2047, 1024, 333], dtype=torch.int32,
                 device=dev))
+            mains.insert(2, torch.tensor(
+                [min(m, P) for m in (0, warp_end - 1, warp_end, warp_end + 1,
+                                     block_end - 1, block_end, block_end + 1,
+                                     P)], dtype=torch.int32, device=dev))
         for ml in mains:
             for rl_val in (1, R):
                 rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
                 args = (q, *cache[:6], k_res, v_res, ml, rl)
+                got = ka.kivi_decode_attention(*args, **kw)
                 ok, err = kivi_reading(
                     f"B={B} H={H} KV={KV} D={D} P={P} R={R} uint{bits} "
                     f"pack={pack} main_len={ml.tolist()} res_len={rl_val}",
-                    ka.kivi_decode_attention(*args, **kw),
-                    ka.kivi_decode_plain(*args, scale=D ** -0.5, **kw), form)
+                    got, ka.kivi_decode_plain(*args, scale=D ** -0.5, **kw),
+                    form)
                 if not ok:
                     failures.append(f"kivi_decode {form}")
+                if not torch.equal(got.view(torch.int16), ka.kivi_decode_attention(
+                        *args, **kw).view(torch.int16)):
+                    failures.append(f"kivi_decode {form}: a repeat call "
+                                    "differs")
                 max_err = max(max_err, err)
-        if (bits, pack, D) == (2, True, 128):
-            timed = (cfg, cache, k_res, v_res, q, kw)
+        if P == 2048:
+            timed[(bits, pack)] = (cfg, cache, k_res, v_res, q, kw)
         if D == 128 and bits == 2:
             # planted faults, from the plain version on altered qparams: a
             # zero-point term dropped (zero points equal to mid), or an
@@ -2047,7 +2134,7 @@ def storage_kernel_phases(torch, timer):
             got = ka.kivi_decode_attention(q, *cache[:6], k_res, v_res, ml,
                                            rl, **kw)
             mid = (1 << (bits - 1)) if bk else 0
-            tok = split0_tokens(P, bk)
+            tok = split0_tokens(B, H, KV, D, P, R, bk)
             faults = []
             for side, idx in (("K", 2), ("V", 5)):
                 parts = list(cache[:6])
@@ -2055,7 +2142,8 @@ def storage_kernel_phases(torch, timer):
                 faults.append((f"the {side} zero-point term dropped", parts))
             parts = list(cache[:6])
             parts[4] = parts[4].clone()
-            parts[4][:, :, tok] = cache.v_scale[:, :, tok + 1]
+            parts[4][:, :, tok] = cache.v_scale[:, :, (tok + 1).clamp(
+                max=P - 1)]
             faults.append(("split 0 reads the next token's V scale", parts))
             parts = list(cache[:6])
             parts[4] = parts[4].clone()
@@ -2075,37 +2163,39 @@ def storage_kernel_phases(torch, timer):
                     failures.append("kivi_decode tolerance misses the "
                                     f"planted fault: {what} ({form})")
         del cache
-    cfg, cache, k_res, v_res, q, kw = timed
-    B, KV, D = q.shape[0], cache.k_codes.shape[1], q.shape[2]
-    H, P, R = q.shape[1], cfg.max_prefill, cfg.max_decode
-    ml = torch.full((B,), P, dtype=torch.int32, device=dev)
-    rl = torch.full((B,), R, dtype=torch.int32, device=dev)
-    args = (q, *cache[:6], k_res, v_res, ml, rl)
-    ms = timer(lambda: ka.kivi_decode_attention(*args, **kw))
-    plain = timer(lambda: ka.kivi_decode_plain(*args, scale=D ** -0.5, **kw),
-                  reps=5)
-    kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), cfg)
-    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-    mask = torch.ones((B, 1, 1, P + R), dtype=torch.bool, device=dev)
-    lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask))
-    del kd, vd
-    # every word row, qparam and residual row is needed at full lengths
-    nbytes = (sum(t.numel() * t.element_size() for t in cache[:6])
-              + 2 * k_res.numel() * 2 + 2 * q.numel() * 2 + 2 * B * 4)
-    b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
-    log(f"  time B={B} H=KV={KV} D={D} P={P} R={R} uint2 packed, full: "
-        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
-        f"(SDPA over the dequantized cache) bound_ms {b:.4f} ({by}, "
-        f"{nbytes / 1e6:.1f} MB)")
-    rows["kivi_decode"] = dict(
-        name="kivi_decode", route="cuda",
-        source="quantized_training_torch/csrc/kivi_decode.cu",
-        replaces="quantized_training_tpu/ops/pallas/kivi_attention.py:76",
-        max_abs_err=max_err, shape="decode B=8 H=KV=32 D=128 P=2048 R=128 "
-        "uint2 packed, full", ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=b, bound_by=by)
-    del cache, timed, args
+    # the 7B shape, every slot full, in each cache form
+    for (bits, pack), key in (((2, True), "kivi_decode"),
+                              ((4, True), "kivi_decode_uint4"),
+                              ((2, False), "kivi_decode_uint8")):
+        cfg, cache, k_res, v_res, q, kw = timed.pop((bits, pack))
+        B, KV, D = q.shape[0], cache.k_codes.shape[1], q.shape[2]
+        H, P, R = q.shape[1], cfg.max_prefill, cfg.max_decode
+        ml = torch.full((B,), P, dtype=torch.int32, device=dev)
+        rl = torch.full((B,), R, dtype=torch.int32, device=dev)
+        args = (q, *cache[:6], k_res, v_res, ml, rl)
+        ms = timer(lambda: ka.kivi_decode_attention(*args, **kw))
+        plain = timer(lambda: ka.kivi_decode_plain(*args, scale=D ** -0.5,
+                                                   **kw), reps=5)
+        lib = sdpa_over_cache_ms(torch, timer, q, cache, cfg, k_res, v_res)
+        stream = timer(kivi_stream(torch, cache, k_res, v_res))
+        # every word row, qparam and residual row is needed at full lengths
+        nbytes = (sum(t.numel() * t.element_size() for t in cache[:6])
+                  + 2 * k_res.numel() * 2 + 2 * q.numel() * 2 + 2 * B * 4)
+        b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
+        form = f"uint{bits} {'packed' if pack else 'bytes'}"
+        log(f"  time B={B} H=KV={KV} D={D} P={P} R={R} {form}, full: "
+            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+            f"(SDPA over the dequantized cache) stream_ms {stream:.4f} "
+            f"(int64 sum of the same bytes) bound_ms {b:.4f} ({by}, "
+            f"{nbytes / 1e6:.1f} MB)")
+        rows[key] = dict(
+            name=key, route="cuda",
+            source="quantized_training_torch/csrc/kivi_decode.cu",
+            replaces="quantized_training_tpu/ops/pallas/kivi_attention.py:76",
+            max_abs_err=max_err, shape=f"decode B=8 H=KV=32 D=128 P=2048 "
+            f"R=128 {form}, full", ms=ms, plain_ms=plain, library_ms=lib,
+            stream_ms=stream, bound_ms=b, bound_by=by)
+        del cache, args
 
     # ---- int-sym decode with int8 codes (kernel 7) -----------------------
     # As the int4 form: p*vs rounded against each split's own max.  The
@@ -3104,13 +3194,7 @@ def gqa_kernel_phases(torch, timer):
             failures.append(f"the tolerance misses the planted fault: {what}")
 
     def library_ms(q, cache, cfg, k_res, v_res, P, R):
-        kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), cfg)
-        kd = kd.transpose(1, 2).contiguous()
-        vd = vd.transpose(1, 2).contiguous()
-        mask = torch.ones((q.shape[0], 1, 1, P + R), dtype=torch.bool,
-                          device=dev)
-        q4 = q[:, :, None, :]
-        return timer(lambda: sdpa(torch, q4, kd, vd, attn_mask=mask))
+        return sdpa_over_cache_ms(torch, timer, q, cache, cfg, k_res, v_res)
 
     def shape_name(g):
         return (f"B={g['B']} H={g['H']} KV={g['KV']} D={g['D']} P={g['P']} "
@@ -3334,12 +3418,14 @@ def gqa_kernel_phases(torch, timer):
             plain = timer(lambda: ka.kivi_decode_plain(
                 *args, scale=D ** -0.5, **kw), reps=5)
             lib = library_ms(q, cache, cfg, k_res, v_res, P, R)
+            stream = timer(kivi_stream(torch, cache, k_res, v_res))
             nbytes = (sum(t.numel() * t.element_size() for t in cache[:6])
                       + 2 * k_res.numel() * 2 + 2 * q.numel() * 2 + 2 * B * 4)
             b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
             log(f"  time {shape_name(g)} uint{bits} pack={pack}, full: "
                 f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                f"{lib:.4f} (SDPA over the dequantized cache) bound_ms "
+                f"{lib:.4f} (SDPA over the dequantized cache) stream_ms "
+                f"{stream:.4f} (int64 sum of the same bytes) bound_ms "
                 f"{b:.4f} ({by}, {nbytes / 1e6:.2f} MB)")
             if (bits, pack) == (2, True):
                 rows["kivi_decode_gqa"] = dict(
@@ -3348,8 +3434,8 @@ def gqa_kernel_phases(torch, timer):
                     replaces="quantized_training_tpu/ops/pallas/"
                     "kivi_attention.py:76", max_abs_err=max_err,
                     shape=f"decode {shape_name(g)} uint2 packed, full",
-                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                    bound_by=by)
+                    ms=ms, plain_ms=plain, library_ms=lib, stream_ms=stream,
+                    bound_ms=b, bound_by=by)
             del cache
     if failures:
         fail("GQA kernel form disagrees with its plain version: "
@@ -5133,6 +5219,19 @@ def main():
             if re.search(r"C751[23]", line) and fn in line:
                 fail(f"{name}: ptxas serialized {fn}'s wgmma: "
                      f"{line.strip()}")
+    # kernel 8 (the KIVI decode) may neither spill nor carry C7512/C7513
+    fn = None
+    for line in report.get("kivi_decode", {}).get("log", "").splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        if re.search(r"C751[23]", line) and "kivi" in line:
+            fail(f"kivi_decode: ptxas serialized a product: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and "kivi_mma" in fn and (int(m.group(1))
+                                                or int(m.group(2))):
+            fail(f"kivi_decode: ptxas spills in {fn}: {line.strip()}")
     # kernels 1-4, 5, 9 and 10 compute their products on the tensor cores:
     # every kernel function of the two flash libraries, the storage GEMM's
     # w4_gemm_tc and the byte storage GEMMs' gemm_tc hold wgmma (HGMMA)
@@ -5145,7 +5244,8 @@ def main():
             "mx_storage_matmul": [("gemm_decode", "HMMA"),
                                   ("7gemm_tc", "HGMMA")],
             "posit_storage_matmul": [("gemm_decode", "HMMA"),
-                                     ("7gemm_tc", "HGMMA")]}
+                                     ("7gemm_tc", "HGMMA")],
+            "kivi_decode": [("kivi_mma", "HMMA")]}
     for lib, forms in need.items():
         for part in _cuda.sass(lib).split("Function : ")[1:]:
             fn = part.split("\n", 1)[0].strip()
@@ -5224,6 +5324,8 @@ def main():
     counter = {"int_kv_decode_8bit": "int_kv_decode",
                "flash_attn_fwd_gqa": "flash_attn_fwd",
                "kivi_decode_gqa": "kivi_decode",
+               "kivi_decode_uint4": "kivi_decode",
+               "kivi_decode_uint8": "kivi_decode",
                "int_kv_decode_gqa": "int_kv_decode",
                "int_kv_decode_gqa_8bit": "int_kv_decode",
                "int_kv_decode_gqa_int_dots_kt": "int_kv_decode_tile",

@@ -607,7 +607,7 @@ w4_gemm_decode(const uint16_t* __restrict__ x,
           deq2_quad(h ? v[0].z : v[0].x, t, zr[ca], sr[ca], a0, a2, magic);
           deq2_quad(h ? v[0].w : v[0].y, t, zr[cb], sr[cb], a1, a3, magic);
         }
-        bsg::mma_bf16(acc[2 * j + h], a0, a1, a2, a3, b0, b1);
+        mma_bf16(acc[2 * j + h], a0, a1, a2, a3, b0, b1);
       }
     }
   }

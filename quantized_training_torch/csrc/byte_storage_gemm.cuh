@@ -154,15 +154,6 @@ struct DecodeLayout {
   static constexpr int SMEM = RING + (Dec::kTable ? DC_TABLE * 4 : 0);
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // One k step into a warp's ring slot, by its 32 lanes: code rows k0..k0+15
 // of columns n0..n0+127, the tokens' x over the same k and (MX) the scale
 // row of k0 and, with two scale rows, that of k0 + 8.  Whatever lies past

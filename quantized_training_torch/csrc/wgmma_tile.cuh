@@ -1,5 +1,7 @@
 // Tile helpers shared by the kernels on Hopper's tensor cores
-// (flash_attn_fwd.cu, flash_attn_bwd.cu, affine_w4_matmul.cu): bf16 tiles
+// (flash_attn_fwd.cu, flash_attn_bwd.cu, affine_w4_matmul.cu, the byte
+// storage GEMMs, kivi_decode.cu; mma.sync m16n8k16 for the decode forms):
+// bf16 tiles
 // copied into shared memory with 16-byte cp.async.cg copies in the 128-byte
 // swizzled layout that wgmma reads, the shared-memory matrix descriptors,
 // the warpgroup multiply-accumulate instructions (bf16 operands, f32 sums)
@@ -72,6 +74,13 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -79,6 +88,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += A B, mma.sync m16n8k16, bf16 in, f32 sums (the decode forms)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Rows r0..r0+ROWS-1 of a (len, D) bf16 matrix into a swizzled tile at

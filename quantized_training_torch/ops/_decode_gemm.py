@@ -22,11 +22,20 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["decode_plan", "decode_workspace", "decode_args"]
+__all__ = ["decode_plan", "decode_workspace", "decode_args", "sm_count"]
 
 _SMS: Dict[int, int] = {}
 _PLANS: Dict[tuple, Tuple[int, int, int, int, int]] = {}
 _WORKSPACES: Dict[tuple, tuple] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of ``device``, asked once."""
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
 
 
 def decode_plan(plan_fn, device: torch.device, M: int, K: int, N: int,
@@ -40,10 +49,7 @@ def decode_plan(plan_fn, device: torch.device, M: int, K: int, N: int,
     key = (plan_fn.__name__, device.index, M, K, N, param)
     plan = _PLANS.get(key)
     if plan is None:
-        sms = _SMS.get(device.index)
-        if sms is None:
-            sms = _SMS[device.index] = torch.cuda.get_device_properties(
-                device).multi_processor_count
+        sms = sm_count(device)
         out = (ctypes.c_int * 4)()
         plan_fn(M, K, N, param, sms, out)
         plan = _PLANS[key] = (*out, sms)

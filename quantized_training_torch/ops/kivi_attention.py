@@ -18,6 +18,12 @@ quantized_training_tpu/ops/pallas/kivi_attention.py:88-185).
 Visibility is post-append: main slot t visible iff t < main_len, residual
 slot r iff r < res_len.
 
+On the card one launch takes a decode step: the blocks of each (batch, kv
+head) pair form one cluster, whose size is :func:`kivi_decode_plan`'s
+rule (the wrapper and ``chip_smoke.py`` read it through
+:func:`kivi_launch_plan`, the CPU tests hold it to its contract), and p is
+rounded against the pair's global max, as the TPU kernel rounds it.
+
 Layouts (head-major cache, see serving/kv_cache.py):
   q                (B, H, D) bf16
   k/v codes        (B, KV, P*bits/32, D) int32 token-planar words of
@@ -29,20 +35,31 @@ Layouts (head-major cache, see serving/kv_cache.py):
 """
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import _cuda
+from . import _cuda, _decode_gemm
 
-__all__ = ["KERNEL_DG", "kivi_decode_attention", "kivi_decode_plain"]
+__all__ = ["KERNEL_DG", "KiviPlan", "kivi_decode_attention",
+           "kivi_decode_plain", "kivi_decode_plan", "kivi_launch_plan",
+           "kivi_plan_tokens"]
 
 NEG_INF = -2.0 ** 30
 
 # The (head dim D, query heads per kv head G) pairs the kernel is
-# instantiated for (csrc/kivi_decode.cu, with_dg), in every cache form.
+# instantiated for (csrc/kivi_decode.cu, with_dg), in every cache form
+# (packed uint2 and uint4 words, uint8 codes), at any K group size that
+# divides P and any V group of a multiple of D/32 features (at most 32
+# groups).
 KERNEL_DG = tuple((d, g) for d in (64, 128) for g in (1, 2, 4, 8))
+
+WARPS = 4        # warps a block (csrc/decode_attn.cuh)
+STEP = 16        # tokens a warp step
+MAX_SPLITS = 8   # blocks a (batch, kv head) pair: one cluster
+MAX_SMEM = 227 * 1024
 
 
 def _unpack_planar(codes: torch.Tensor, bits: Optional[int]) -> torch.Tensor:
@@ -121,16 +138,105 @@ def kivi_decode_plain(q, k_codes, k_scale, k_zp, v_codes, v_scale, v_zp,
     return (acc / denom).to(q.dtype).reshape(B, H, D)
 
 
+class KiviPlan(NamedTuple):
+    """How one decode launch cuts each (batch, kv head) pair's tokens: the
+    pair's ``splits`` blocks form one cluster, and its W = 4 * splits warps
+    share each tier's 16-token steps evenly, in order (warp w: steps
+    [w * n // W, (w + 1) * n // W)).  A main step is ``unit`` rows: word
+    rows of packed codes (the token of row r in plane p is p * rows + r) or
+    tokens of bytes; a residual step 16 ring rows.  The grid is (splits,
+    KV, B)."""
+    splits: int
+    rows: int
+    unit: int
+    main_steps: int
+    res_steps: int
+
+
+@functools.lru_cache(maxsize=256)
+def kivi_decode_plan(B: int, KV: int, P: int, R: int, bits: Optional[int],
+                     sms: int = 132, blocks_per_sm: int = 4) -> KiviPlan:
+    """The split of csrc/kivi_decode.cu's launch (the one rule; the kernel
+    takes it as its ``splits`` argument): the most blocks a pair, a power
+    of two up to 8 (a portable cluster), that keep the grid in one wave of
+    ``blocks_per_sm`` blocks an SM and every warp at least one step.
+    ``bits``: 2 or 4 for packed words, None (or 0) for bytes."""
+    per = 32 // bits if bits else 1
+    rows = P // per
+    unit = STEP // per
+    main_steps, res_steps = -(-rows // unit), -(-R // STEP)
+    splits = 1
+    while (splits < MAX_SPLITS
+           and 2 * splits * max(1, B * KV) <= blocks_per_sm * sms
+           and 2 * splits * WARPS <= main_steps + res_steps):
+        splits *= 2
+    return KiviPlan(splits, rows, unit, main_steps, res_steps)
+
+
+_LAUNCH_PLANS = {}
+
+
+def kivi_launch_plan(device: torch.device, B: int, H: int, KV: int, D: int,
+                     P: int, R: int, gP: int, gD: int,
+                     bits: Optional[int]) -> KiviPlan:
+    """kivi_decode_plan for a launch on ``device``: its SM count and the
+    blocks of the kernel an SM holds (the library's occupancy at one
+    split's shared memory, the most a block of this call can need)."""
+    key = (device.index, B, H, KV, D, P, R, gP, gD, bits)
+    plan = _LAUNCH_PLANS.get(key)
+    if plan is None:
+        lib = _lib()
+        smem = lib.kivi_decode_smem(B, H, KV, D, P, R, gP, gD, bits or 0, 1)
+        per_sm = lib.kivi_decode_blocks_per_sm(D, H // KV, bits or 0, smem)
+        plan = _LAUNCH_PLANS[key] = kivi_decode_plan(
+            B, KV, P, R, bits, _decode_gemm.sm_count(device), max(1, per_sm))
+    return plan
+
+
+def kivi_plan_tokens(plan: KiviPlan, R: int, bits: Optional[int]):
+    """[[(main tokens, residual rows) of each warp] of each split], as the
+    kernel reads them before it cuts them at main_len and res_len: every
+    plane of a warp's word rows."""
+    per = 32 // bits if bits else 1
+    W = WARPS * plan.splits
+
+    def steps(w, n):
+        return w * n // W, (w + 1) * n // W
+
+    out = []
+    for s in range(plan.splits):
+        warps = []
+        for w in range(s * WARPS, (s + 1) * WARPS):
+            m0, m1 = steps(w, plan.main_steps)
+            q0, q1 = steps(w, plan.res_steps)
+            rows = range(m0 * plan.unit, min(m1 * plan.unit, plan.rows))
+            warps.append(([p * plan.rows + r for r in rows for p in range(per)],
+                          list(range(q0 * STEP, min(q1 * STEP, R)))))
+        out.append(warps)
+    return out
+
+
 def _lib():
     lib = _cuda.load("kivi_decode")
     if lib.kivi_decode.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.kivi_decode.argtypes = ([vp] * 16 + [ci] * 10
-                                    + [ctypes.c_float, vp])
+        lib.kivi_decode.argtypes = ([vp] * 12 + [ci] * 10
+                                    + [ctypes.c_float, ci, vp])
         lib.kivi_decode.restype = ci
-        lib.kivi_num_splits.argtypes = [ci, ci, ci]
-        lib.kivi_num_splits.restype = ci
+        lib.kivi_decode_smem.argtypes = [ci] * 10
+        lib.kivi_decode_smem.restype = ctypes.c_longlong
+        lib.kivi_decode_blocks_per_sm.argtypes = [ci, ci, ci,
+                                                  ctypes.c_longlong]
+        lib.kivi_decode_blocks_per_sm.restype = ci
+        lib.kivi_dequant_check.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.kivi_dequant_check.restype = ci
     return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernel's 16-byte reads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def kivi_decode_attention(
@@ -145,7 +251,8 @@ def kivi_decode_attention(
     CPU tensors take :func:`kivi_decode_plain`; CUDA tensors launch the
     kernel, and anything it does not take raises: it is built for head dim
     D in (64, 128) with G = H / KV in (1, 2, 4, 8) query heads per kv head
-    (``KERNEL_DG``), for each cache form.
+    (``KERNEL_DG``), for each cache form, with V groups of a multiple of
+    D/32 features (at most 32 groups).
     """
     B, H, D = q.shape
     if scale is None:
@@ -171,7 +278,8 @@ def kivi_decode_attention(
     for name, t, bits in (("k", k_codes, bits_k), ("v", v_codes, bits_v)):
         want = torch.int32 if bits else torch.uint8
         rows = P * bits // 32 if bits else P
-        if t.dtype != want or tuple(t.shape) != (B, KV, rows, D):
+        if t.dtype != want or tuple(t.shape) != (B, KV, rows, D) \
+                or (bits and P * bits % 32):
             problems.append(f"{name} codes {t.dtype} {tuple(t.shape)} "
                             f"(want {want} {(B, KV, rows, D)})")
     if any(t.dtype != torch.bfloat16 for t in (k_scale, k_zp, v_scale, v_zp)):
@@ -179,7 +287,7 @@ def kivi_decode_attention(
     if main_len.dtype != torch.int32 or res_len.dtype != torch.int32:
         problems.append("lengths must be int32")
     if H % KV or (D, H // KV) not in KERNEL_DG \
-            or gP == 0 or gP > 256 or P % gP or gD == 0 or D % gD \
+            or gP == 0 or P % gP or gD == 0 or D % gD \
             or (D // gD) % (D // 32) \
             or tuple(k_scale.shape) != (B, KV, gP, D) \
             or tuple(k_zp.shape) != (B, KV, gP, D) \
@@ -191,7 +299,7 @@ def kivi_decode_attention(
             f"shapes q {tuple(q.shape)} k scale {tuple(k_scale.shape)} "
             f"v scale {tuple(v_scale.shape)} res {tuple(k_res.shape)} lens "
             f"{tuple(main_len.shape)} (the kernel takes D in (64, 128) with "
-            f"G = H/KV in (1, 2, 4, 8), at most 256 K groups, and V groups "
+            f"G = H/KV in (1, 2, 4, 8), K groups that divide P, and V groups "
             f"of a multiple of D/32 features)")
     tensors = (q, k_codes, k_scale, k_zp, v_codes, v_scale, v_zp, k_res,
                v_res, main_len, res_len)
@@ -201,22 +309,39 @@ def kivi_decode_attention(
         raise ValueError("kivi_decode_attention kernel: "
                          + "; ".join(problems))
     lib = _lib()
-    ns = lib.kivi_num_splits(P, R, bits_k or 0)
-    m_part = torch.empty((B, H, ns), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, H, ns, D), dtype=torch.float32,
-                           device=q.device)
-    o2_part = torch.empty((B, H, ns, gD), dtype=torch.float32,
-                          device=q.device)
+    plan = kivi_launch_plan(q.device, B, H, KV, D, P, R, gP, gD, bits_k)
+    smem = lib.kivi_decode_smem(B, H, KV, D, P, R, gP, gD, bits_k or 0,
+                                plan.splits)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"kivi_decode_attention kernel: P={P} R={R} at G={H // KV} needs "
+            f"{smem} bytes of shared memory a block for its scores (at most "
+            f"{MAX_SMEM})")
+    tensors = tuple(_aligned(t) for t in tensors)
     out = torch.empty_like(q)
     err = lib.kivi_decode(
-        *(t.data_ptr() for t in tensors), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), o2_part.data_ptr(),
-        out.data_ptr(), B, H, KV, D, P, R, gP, gD, bits_k or 0, bits_v or 0,
-        float(scale), _cuda.stream_ptr(q.device))
+        *(t.data_ptr() for t in tensors), out.data_ptr(), B, H, KV, D, P, R,
+        gP, gD, bits_k or 0, bits_v or 0, float(scale), plan.splits,
+        _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "kivi_decode")
     kivi_decode_attention.launches += 1
     return out
 
 
 kivi_decode_attention.launches = 0
+
+
+def kivi_dequant_check(codes: torch.Tensor, scales: torch.Tensor,
+                       bits: Optional[int]) -> torch.Tensor:
+    """bf16(codes * scales) through the kernel's own dequant, on the card
+    (a check that it rounds as the plain version does): ``codes`` int32,
+    centered two's complement codes for bits 2 or 4, bytes 0-255 for None;
+    ``scales`` bf16; an even count."""
+    lib = _lib()
+    codes = codes.to(torch.int32).contiguous()
+    scales = scales.contiguous()
+    out = torch.empty_like(scales)
+    _cuda.check(lib, lib.kivi_dequant_check(
+        codes.data_ptr(), scales.data_ptr(), out.data_ptr(), codes.numel(),
+        bits or 0, _cuda.stream_ptr(codes.device)), "kivi_dequant_check")
+    return out

@@ -9,9 +9,11 @@ forms, the decode form at M <= 8 and the wgmma form above it and at w4
 group 8, at ragged shapes also bit for bit on the identity's rows, as the
 MX8 and posit8 GEMMs in both forms, at every group, block size and es,
 with odd N and misaligned codes and scales), the rounding kernel takes
-the NormalFloat codebooks and native casts bit for bit, and both decode
+the NormalFloat codebooks and native casts bit for bit, both decode
 kernels take every instantiated GQA group and head dim (and refuse the
-rest).  Marked
+rest), and the KIVI decode holds its bounds where its split cuts the
+tokens, at empty and full tiers, past 256 K groups, and gives the same
+bits from a repeated call.  Marked
 ``cuda``: without a card each test skips.  This file imports no JAX, so on
 a card's machine without JAX it runs as
 
@@ -589,6 +591,78 @@ def test_kivi_decode_launches_and_matches_plain(cuda_device, bits, pack):
     want = kivi_attention.kivi_decode_plain(*args, bits_k=bk, bits_v=bk,
                                             scale=D ** -0.5)
     assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    again = fn(*args, bits_k=bk, bits_v=bk)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def _kivi_case(gen, B, H, KV, D, P, R, bits, pack):
+    spec = "uint{},qs=group_wise_affine,bs=32,ax={}"
+    cfg = kvc.KVCacheConfig.kivi(P, R, spec.format(bits, -2),
+                                 spec.format(bits, -1), pack)
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, KV, D,
+                                             device=gen.device),
+                              cfg, _rnd(gen, B, P, KV, D),
+                              _rnd(gen, B, P, KV, D))
+    return (cfg._pack_bits(cfg.k_spec), cache, _rnd(gen, B, KV, R, D),
+            _rnd(gen, B, KV, R, D), _rnd(gen, B, H, D))
+
+
+@pytest.mark.parametrize("bits,pack", [(2, True), (4, True), (2, False)])
+def test_kivi_decode_edges_splits_and_repeat(cuda_device, bits, pack):
+    """The KIVI decode where its split cuts the tokens (a pair's steps over
+    several blocks of one cluster): in one batch an empty main tier with
+    ring rows, a full main tier, an empty ring with main tokens and a full
+    ring, then main_len one token either side of a warp's and of the first
+    block's last row; within 2e-2 + 2e-2*|plain| of the plain version, one
+    launch each, and a repeated call bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20 + bits)
+    B, H, KV, D, P, R = 4, 8, 2, 128, 1024, 64
+    bk, cache, k_res, v_res, q = _kivi_case(gen, B, H, KV, D, P, R, bits,
+                                            pack)
+    plan = kivi_attention.kivi_launch_plan(
+        cuda_device, B, H, KV, D, P, R, cache.k_scale.shape[2],
+        cache.v_scale.shape[3], bk)
+    assert plan.splits > 1
+    # the first row past warp 0's and past block 0's main rows (a row's
+    # token in plane 0 is its index)
+    warps = kivi_attention.kivi_plan_tokens(plan, R, bk)
+    warp_end = max(t % plan.rows for t in warps[0][0][0]) + 1
+    block_end = max(t % plan.rows for w, _ in warps[0] for t in w) + 1
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    cases = [([0, P, 700, P], [1, 17, 0, R]),
+             ([warp_end - 1, warp_end, warp_end + 1, block_end - 1], [3] * B),
+             ([block_end, block_end + 1, 1, P - 1], [R, 0, 1, 5])]
+    fn = kivi_attention.kivi_decode_attention
+    for ml, rl in cases:
+        args = (q, *cache[:6], k_res, v_res, torch.tensor(ml, **i32),
+                torch.tensor(rl, **i32))
+        got = _launches(fn, lambda: fn(*args, bits_k=bk, bits_v=bk))
+        want = kivi_attention.kivi_decode_plain(*args, bits_k=bk, bits_v=bk,
+                                                scale=D ** -0.5)
+        assert torch.allclose(got.float(), want.float(), atol=2e-2,
+                              rtol=2e-2), (ml, rl)
+        again = fn(*args, bits_k=bk, bits_v=bk)
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def test_kivi_decode_takes_more_than_256_k_groups(cuda_device):
+    """P = 16384 at the flagship's block of 32 tokens: 512 K groups a kv
+    head, past the 256 the CUDA-core kernel held in a table; the
+    tensor-core kernel computes each split's K constants in registers."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    B, H, KV, D, P, R = 1, 4, 2, 128, 16384, 32
+    bk, cache, k_res, v_res, q = _kivi_case(gen, B, H, KV, D, P, R, 2, True)
+    assert cache.k_scale.shape[2] == 512
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    for ml in (P, 12345):
+        args = (q, *cache[:6], k_res, v_res, torch.tensor([ml], **i32),
+                torch.tensor([R], **i32))
+        fn = kivi_attention.kivi_decode_attention
+        got = _launches(fn, lambda: fn(*args, bits_k=bk, bits_v=bk))
+        want = kivi_attention.kivi_decode_plain(*args, bits_k=bk, bits_v=bk,
+                                                scale=D ** -0.5)
+        assert torch.allclose(got.float(), want.float(), atol=2e-2,
+                              rtol=2e-2)
 
 
 def test_w8a8_integer_dot_exact_on_cuda(cuda_device):
@@ -803,6 +877,8 @@ def test_kivi_decode_gqa_forms(cuda_device, D, G, bits):
     got = _launches(fn, lambda: fn(q, *args, **kw))
     want = kivi_attention.kivi_decode_plain(q, *args, scale=D ** -0.5, **kw)
     assert torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got.view(torch.int16), fn(q, *args, **kw).view(
+        torch.int16))
     if G > 1:
         faulted = _head_map_fault(kivi_attention.kivi_decode_plain, q, *args,
                                   G=G, KV=KV, scale=D ** -0.5, **kw)

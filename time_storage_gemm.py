@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Time the storage GEMMs of one or more checkouts of the port on one NVIDIA
-GPU, so that two versions of a kernel are compared within one run: kernel 5
-(the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at its prefill shapes and
-at its decode shapes (M = 8 and 1 at LLaMA-2 7B's, Phi-3-medium's qkv and
-down, the w2 format's 13B qkv), and kernels 9 and 10 (the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu``
-and ``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes and at
+"""Time the storage GEMMs and the KIVI decode of one or more checkouts of
+the port on one NVIDIA GPU, so that two versions of a kernel are compared
+within one run: kernel 5 (the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at
+its prefill shapes and at its decode shapes (M = 8 and 1 at LLaMA-2 7B's,
+Phi-3-medium's qkv and down, the w2 format's 13B qkv), kernels 9 and 10
+(the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu`` and
+``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes and at
 M > 8 (its qkv and down at a 2048-token prefill, its qkv at one slot's
-128-token prompt):
+128-token prompt), and kernel 8 (the KIVI decode, ``csrc/kivi_decode.cu``)
+at the 7B's decode shape (8 full slots, P = 2048, R = 128) in each cache
+form (packed uint2 and uint4, uint8 codes) and at Phi-3-medium's in packed
+uint2:
 
     python3 time_storage_gemm.py [--steps-only | --match TEXT] ROOT [ROOT ...]
 
@@ -14,25 +18,30 @@ Each ROOT is a directory that holds a ``quantized_training_torch`` package
 (``.`` for this checkout).  The checkouts are timed in the order given, each
 in a process of its own (name one twice to time it twice, as in A B B A).
 A process builds its checkout's kernels into that checkout's ``_build/``,
-checks one call at each shape against the plain version (1e-4 +
-1e-2*|plain|, chip_smoke.py's bound) and times it with chip_smoke.py's
-``Timer`` (median of 15 calls, L2 flushed); it also reads the host's cost
-of a call, the mean over 200 calls queued back to back without a wait
-(the card runs behind, so the host sets that pace).  Every weight is seeded, group
-or MX block 64, posit8 es 1.  Then it serves chip_smoke.py's posit8_kv4
-and mx8_kv4 format arms (2 layers at 7B width) and its 32-layer 7B w4a16
-model with the int4 cache (the serving phase's), each with 8 slots of 128
-prompt tokens: the median of 5 prefills' wall time, one more prefill
-traced (``torch.profiler``) for the device's busy time and the device time
-of the storage GEMMs (kernels in ``bsg::`` for the byte formats, 10
-launches at M = 1024 and the lm_head's at M = 8; kernel 5's ``w4_gemm``
-kernels for w4a16), then the median of 20 decode steps' wall time and of
-their host time (from the step's call until it has been queued, before
-the wait for the card), and one more step traced for the device's busy
-time, its idle share and the storage GEMMs' device time.
-``--steps-only`` serves the arms and times no shape, for many alternating
-runs (P A P A ...) in one call; ``--match TEXT`` times only the shapes
-whose label holds TEXT and serves no arm.  Prints a line
+checks one call at each shape against the plain version (the GEMMs within
+1e-4 + 1e-2*|plain|, kernel 8 within chip_smoke.py's KIVI_TOL bounds for its
+form) and times it with chip_smoke.py's ``Timer`` (median of 15 calls, L2
+flushed); it also reads the host's cost of a call, the mean over 200 calls
+queued back to back without a wait (the card runs behind, so the host sets
+that pace).  Every weight is seeded, group or MX block 64, posit8 es 1.
+Then it serves its arms, each labelled ``step ...``: chip_smoke.py's
+posit8_kv4 and mx8_kv4 format arms (2 layers at 7B width) and its 32-layer
+7B w4a16 model with the int4 cache (the serving phase's), each with 8
+slots of 128 prompt tokens: the median of 5 prefills' wall time, one more
+prefill traced (``torch.profiler``) for the device's busy time and the
+device time of the storage GEMMs (kernels in ``bsg::`` for the byte
+formats, 10 launches at M = 1024 and the lm_head's at M = 8; kernel 5's
+``w4_gemm`` kernels for w4a16), then the median of 20 decode steps' wall
+time and of their host time (from the step's call until it has been
+queued, before the wait for the card), and one more step traced for the
+device's busy time, its idle share and the storage GEMMs' device time;
+and the 32-layer 7B w4a16 model with the packed uint2 KIVI cache (the
+flagship), its 8 slots prefilled with 2048 tokens each (one untimed
+prefill), whose traced decode step also reports kernel 8's device time
+(kernels named ``kivi``).  ``--steps-only`` serves the arms and times no
+shape, for many alternating runs (P A P A ...) in one call; ``--match
+TEXT`` times only the shapes and serves only the arms whose label holds
+TEXT (``kivi`` takes kernel 8's shapes and the KIVI step).  Prints a line
 per checkout and shape or arm, then the card's name and power limit and
 one JSON object with every reading; exits non-zero if a check fails or
 CUDA is not available.
@@ -81,6 +90,55 @@ for _fmt in ("mx8", "posit8"):
     SHAPES += [(f"{_fmt} prefill qkv", _fmt, 2048, 4096, 12288),
                (f"{_fmt} prefill down", _fmt, 2048, 11008, 4096),
                (f"{_fmt} prompt qkv", _fmt, 128, 4096, 12288)]
+
+
+# (label, B, H, KV, D, P, R, bits, packed): kernel 8 at every slot full
+KIVI_SHAPES = [("kivi 7B uint2", 8, 32, 32, 128, 2048, 128, 2, True),
+               ("kivi 7B uint4", 8, 32, 32, 128, 2048, 128, 4, True),
+               ("kivi 7B uint8", 8, 32, 32, 128, 2048, 128, 2, False),
+               ("kivi Phi-3 uint2", 8, 40, 10, 128, 2048, 128, 2, True)]
+
+# (label, storage format, layers, cache, prompt tokens a slot, watched
+# kernel names): the served arms
+ARMS = [("step posit8_kv4", "posit8", 2, "int4", 128, ("bsg::",)),
+        ("step mx8_kv4", "mx8", 2, "int4", 128, ("bsg::",)),
+        ("step w4a16_kv4", "w4a16", 32, "int4", 128, ("w4_gemm",)),
+        ("step w4a16_kivi2", "w4a16", 32, "kivi2", 2048,
+         ("w4_gemm", "kivi"))]
+
+
+def kivi_row(torch, smoke, timer, gen, label, B, H, KV, D, P, R, bits,
+             pack):
+    """Kernel 8 at one shape, every slot full: checked against its plain
+    version within chip_smoke.py's bound for the form, timed."""
+    from quantized_training_torch.ops import kivi_attention as ka
+    from quantized_training_torch.serving import kv_cache as kvc
+    bf16 = torch.bfloat16
+    cfg = smoke.kivi_config(P, R, bits, pack)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, KV, D, device="cuda"),
+                              cfg, rnd(B, P, KV, D), rnd(B, P, KV, D))
+    bk = cfg._pack_bits(cfg.k_spec)
+    full = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    args = (rnd(B, H, D), *cache[:6], rnd(B, KV, R, D), rnd(B, KV, R, D),
+            full, full * 0 + R)
+    kw = dict(bits_k=bk, bits_v=bk)
+    ok, _ = smoke.kivi_reading(
+        label, ka.kivi_decode_attention(*args, **kw),
+        ka.kivi_decode_plain(*args, scale=D ** -0.5, **kw), (128, bits, pack))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        ka.kivi_decode_attention(*args, **kw)
+    host_us = (time.perf_counter() - t) / 200 * 1e6
+    torch.cuda.synchronize()
+    ms = timer(lambda: ka.kivi_decode_attention(*args, **kw))
+    return dict(shape=label, format=f"kivi uint{bits} "
+                f"{'packed' if pack else 'bytes'}", M=B, K=P, N=H, ok=ok,
+                ms=ms, host_us=host_us)
 
 
 def gemm(fmt, w):
@@ -139,22 +197,24 @@ def time_one(root, steps_only=False, match=None):
         rows.append(dict(shape=label, format=fmt, M=M, K=K, N=N, ok=ok,
                          ms=timer(lambda: call(x)), host_us=host_us))
         del w, call, plain, x, got, want
-    steps = [] if match is not None else [
-        decode_step(torch, smoke, fmt, layers, watch)
-        for fmt, layers, watch in (("posit8", 2, "bsg::"), ("mx8", 2, "bsg::"),
-                                   ("w4a16", 32, "w4_gemm"))]
+    for label, *shape in [] if steps_only else KIVI_SHAPES:
+        if match is None or match in label:
+            rows.append(kivi_row(torch, smoke, timer, gen, label, *shape))
+    steps = [decode_step(torch, smoke, *arm[1:])
+             for arm in ARMS if match is None or match in arm[0]]
     print(json.dumps({"root": root, "rows": rows, "decode_steps": steps}),
           flush=True)
 
 
-def decode_step(torch, smoke, fmt, layers, watch, B=8, S=128, steps=20):
+def decode_step(torch, smoke, fmt, layers, cache, S, watch, B=8, steps=20):
     """chip_smoke.py's LLaMA-2 7B-width model in storage format ``fmt`` at
-    ``layers`` layers with the int4 cache: prefills of B slots of S tokens
-    (5 timed, one traced), then ``steps`` timed decode steps (wall and host
-    time), one more traced; the storage GEMMs are the kernels whose names
-    hold ``watch``."""
+    ``layers`` layers with ``cache`` (int4, or kivi2: packed uint2 KIVI):
+    prefills of B slots of S tokens (with int4 5 timed and one traced;
+    with kivi2 one, untimed), then ``steps`` timed decode steps (wall and
+    host time), one more traced; the watched kernels are those whose names
+    hold each string of ``watch`` (the first: the storage GEMMs)."""
     import quantized_training_torch as qt
-    cfg, qc = smoke.serving_config(qt, layers, fmt, "int4")
+    cfg, qc = smoke.serving_config(qt, layers, fmt, cache)
     model = qt.LlamaForCausalLM(cfg, qc, device="cuda")
     model.load_state_dict(qt.random_params(cfg, fmt, 64, seed=0,
                                            device="cuda"), assign=True)
@@ -166,15 +226,15 @@ def decode_step(torch, smoke, fmt, layers, watch, B=8, S=128, steps=20):
                          last_logit_only=True)
 
     walls = []
-    for _ in range(6):
+    for _ in range(6 if cache == "int4" else 1):
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits, caches = prefill()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
-    prefill_ms = sorted(walls[1:])[2]
-    pre = smoke.profile(torch, prefill, prefill_ms, "8-slot prefill",
-                        watch=(watch,)) or {}
+    prefill_ms = sorted(walls[1:])[2] if len(walls) > 1 else None
+    pre = (smoke.profile(torch, prefill, prefill_ms, "8-slot prefill",
+                         watch=watch) or {}) if prefill_ms else {}
     with torch.no_grad():
         tok = logits[:, -1].argmax(-1, keepdim=True)
         times, host = [], []
@@ -195,14 +255,16 @@ def decode_step(torch, smoke, fmt, layers, watch, B=8, S=128, steps=20):
             model(tok, use_cache=True, caches=caches, cache_index=S + steps)
 
     prof = smoke.profile(torch, one_step, ms, "decode step",
-                         watch=(watch,)) or {}
-    out = {"format": fmt, "layers": layers, "prefill_ms": prefill_ms,
+                         watch=watch) or {}
+    out = {"format": fmt, "cache": cache, "layers": layers,
+           "prompt": S, "prefill_ms": prefill_ms,
            "prefill_busy_ms": pre.get("busy_ms"),
-           "prefill_storage_gemm_ms": pre.get("watched_ms", {}).get(watch),
+           "prefill_storage_gemm_ms": pre.get("watched_ms", {}).get(watch[0]),
            "decode_ms_per_step": ms, "host_ms_per_step": host_ms,
            "busy_ms": prof.get("busy_ms"),
            "idle_share": prof.get("idle_share"),
-           "storage_gemm_ms": prof.get("watched_ms", {}).get(watch)}
+           "storage_gemm_ms": prof.get("watched_ms", {}).get(watch[0]),
+           "kivi_decode_ms": prof.get("watched_ms", {}).get("kivi")}
     del model, caches, logits
     torch.cuda.empty_cache()
     return out
@@ -238,17 +300,19 @@ def main(roots, steps_only=False, match=None):
                   f"{r['ok']}", flush=True)
             ok = ok and r["ok"]
         for d in run["decode_steps"]:
-            print(f"{root}  {d['format']}_kv4 ({d['layers']} layers) 8-slot "
-                  f"prefill: "
-                  f"{d['prefill_ms']:.3f} ms wall, busy "
-                  f"{d['prefill_busy_ms']} ms, storage GEMMs "
-                  f"{d['prefill_storage_gemm_ms']} ms", flush=True)
-            print(f"{root}  {d['format']}_kv4 ({d['layers']} layers) decode "
-                  f"step: "
+            arm = (f"{d['format']}_{d['cache']} ({d['layers']} layers, "
+                   f"{d['prompt']}-token prompts)")
+            if d["prefill_ms"] is not None:
+                print(f"{root}  {arm} 8-slot prefill: "
+                      f"{d['prefill_ms']:.3f} ms wall, busy "
+                      f"{d['prefill_busy_ms']} ms, storage GEMMs "
+                      f"{d['prefill_storage_gemm_ms']} ms", flush=True)
+            print(f"{root}  {arm} decode step: "
                   f"{d['decode_ms_per_step']:.3f} ms wall, host "
                   f"{d['host_ms_per_step']:.3f} ms, busy "
                   f"{d['busy_ms']} ms, idle share {d['idle_share']}, "
-                  f"storage GEMMs {d['storage_gemm_ms']} ms", flush=True)
+                  f"storage GEMMs {d['storage_gemm_ms']} ms, KIVI decode "
+                  f"{d['kivi_decode_ms']} ms", flush=True)
     print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
     print(json.dumps({"storage_gemm_times": runs}))
     return 0 if ok else 1
@@ -264,8 +328,8 @@ if __name__ == "__main__":
     mode.add_argument("--steps-only", action="store_true",
                       help="serve the arms, time no shape")
     mode.add_argument("--match", metavar="TEXT",
-                      help="time only the shapes whose label holds TEXT, "
-                      "serve no arm")
+                      help="time only the shapes and serve only the arms "
+                      "whose label holds TEXT")
     # one ROOT in this process (main runs each ROOT so)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
