@@ -18,11 +18,12 @@ Phases, each of which exits non-zero on failure:
      the plain lse, o_unq and di for both sides) at three shapes; the packed
      8-bit Adam step must be bit-equal at the train step's three leaf
      shapes, the unpacked one at BERT-base's leaf shapes and a padded
-     leaf; the int-sym decode's integer-dot and K^T forms within an atol
-     and a cap on the share of outputs outside a tight bound, with planted
-     faults (p * vs quantized per split, a neighbour's q scale, K^T read
-     untransposed); the plane-major dequant stream bit for bit at the two shapes
-     it served on the TPU, the KIVI decode (per cache form, an atol and a
+     leaf; the int-sym decode in every form within an atol and a cap on
+     the share of outputs outside a tight bound, with planted faults (p * vs
+     quantized per split, a neighbour's q scale, K^T read untransposed, one
+     block's partial lost, the max of one block); the plane-major dequant
+     stream bit for bit at the two shapes it served on the TPU, the KIVI
+     decode (per cache form, an atol and a
      cap on the share of outputs outside a tight bound) and the storage
      GEMMs with planted faults (a zero-point term dropped, a split or K
      group reading its neighbour's scales, a split losing its values, one
@@ -90,7 +91,7 @@ Phases, each of which exits non-zero on failure:
      to the last entry), and the two-pass flash and the fused
      quantize-matmul with an NF4 rounding.
 Slice 7 (Phi-3-medium-4k, GQA 40/10) adds: in phase 2/3, kernel 7's
-split forms (int4, int8) and whole-tile forms (integer dots, K^T, both)
+bf16-dot forms (int4, int8) and its integer-dot and K^T forms
 and kernel 8's cache forms (packed uint2, packed uint4, uint8) at the
 Phi-3 decode shape (B=8 H=40 KV=10 D=128 P=2048 R=128) and at a D=64 G=8
 edge, with planted faults (query head h reading kv head h % KV; q
@@ -211,6 +212,18 @@ warp's and of the first block's end, and a repeated call bit for bit), its
 planted faults placed by the kernel's own plan (``kivi_launch_plan``), and
 times the 7B shape in each form (uint2, uint4, uint8) and Phi-3's beside an
 int64 sum of the same bytes (``stream_ms``).
+
+Slice 15 redesigns kernel 7 (the int-sym decode,
+csrc/int_kv_decode.cu:int_kv_mma, which replaces the CUDA-core
+int_kv_split, int_kv_merge and int_kv_tile) for the tensor cores in every
+form on kernel 8's cluster design: phase 1 requires mma.sync (HMMA) in
+every int_kv_mma function and IMMA in the integer-dot ones, and fails on a
+spill or a C7512/C7513 warning in one; phase 2/3 holds every form within
+one bound (INT_KV_*: p now rounds against the pair's global max, so the
+rounding floors the bf16-dot forms were allowed are gone), with two more
+planted faults placed by the kernel's own plan (``int_kv_launch_plan``):
+the first block's partial left out of the merge, and the pair's max taken
+from the first block alone; every kernel 7 row has ``stream_ms``.
 
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -709,11 +722,10 @@ def kernel_phases(torch, timer):
         max_abs_err=gqa_err, shape="prefill B=1 H=40 KV=10 S=2048 D=128",
         **flash_row(2048, H=40, KV=10))
 
-    # ---- int4 decode attention -------------------------------------------
-    # The kernel rounds p*vs to bf16 against each split's own max, the
-    # plain version against the global max; a full slot has |out| ~ 0.02.
-    atol, rtol = 2e-3, 2e-2
-    log(f"phase 2/3: int_kv_decode (tolerance {atol} + {rtol}*|plain|)")
+    # ---- int4 decode attention (kernel 7, the served form) ----------------
+    # The kernel rounds where the plain version rounds, p * vs against the
+    # pair's global max: INT_KV_* bounds, as every form of kernel 7.
+    log(f"phase 2/3: int_kv_decode ({int_kv_tolerances()})")
     B, H, KV, D, P, R = 8, 32, 32, 128, 2048, 128
     kcfg = kvc.KVCacheConfig.int_sym(P, R, 4)
     k = randn(B, P, KV, D, dtype=bf16)
@@ -734,61 +746,87 @@ def kernel_phases(torch, timer):
                        (torch.full((B,), P, dtype=torch.int32, device=dev),
                         64)]:
         rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
-        got = ikv.int_kv_decode_attention(q, *args, ml, rl, **int4)
-        want = ikv.int_kv_decode_plain(q, *args, ml, rl,
-                                       scale=1 / math.sqrt(D), **int4)
-        torch.cuda.synchronize()
-        ok, err = check_close(f"main_len={ml.tolist()} res_len={rl_val}",
-                              got, want, atol, rtol)
+        ok, err = int_kv_reading(
+            f"main_len={ml.tolist()} res_len={rl_val}",
+            ikv.int_kv_decode_attention(q, *args, ml, rl, **int4),
+            ikv.int_kv_decode_plain(q, *args, ml, rl, scale=1 / math.sqrt(D),
+                                    **int4))
         max_err = max(max_err, err)
         if not ok:
             failures.append(f"int_kv_decode res_len={rl_val}")
 
-    # Planted faults at main_len=P: split 3 (word rows 96..127, i.e. tokens
-    # s*P/8 + 96..127 for each plane s) reads the v scale of the next
-    # token, or loses its values altogether.
+    # Planted faults at main_len=P: word rows 96..127 (tokens s*P/8 +
+    # 96..127 of each plane s) read the v scale of the next token, or lose
+    # their values altogether; the tokens of the pair's first block left
+    # out of the merge; the pair's max taken from the first block alone
+    # (q sharpened fourfold, so that a few tokens carry each row and p's
+    # rounding against another max shows; its outputs reach |x| ~ 2, where
+    # one bf16 step is 2^-7|x|, so that case, and its fault, take that room
+    # beside the atol: the share outside the tight bound is what catches
+    # the fault)
     ml = torch.full((B,), P, dtype=torch.int32, device=dev)
     rl = torch.full((B,), 64, dtype=torch.int32, device=dev)
     got = ikv.int_kv_decode_attention(q, *args, ml, rl, **int4)
     toks = (torch.arange(8, device=dev)[:, None] * (P // 8)
             + torch.arange(96, 128, device=dev)).flatten()
+    faults = []
     for fault in ("reads the next token's v scale", "loses its values"):
         vs_f = cache.v_scale.clone()
         vs_f[..., toks] = (cache.v_scale[..., toks + 1]
                            if fault.startswith("reads") else 0.0)
-        faulted = ikv.int_kv_decode_plain(
-            q, cache.k_codes, cache.k_scale, cache.v_codes, vs_f, k_res,
-            v_res, ml, rl, scale=1 / math.sqrt(D), **int4)
-        planted_fault(f"main_len={P} res_len=64, split 3 {fault}", got,
-                      faulted, atol, rtol, failures)
+        faults.append((f"word rows 96..127 {fault}", got,
+                       ikv.int_kv_decode_plain(
+                           q, cache.k_codes, cache.k_scale, cache.v_codes,
+                           vs_f, k_res, v_res, ml, rl,
+                           scale=1 / math.sqrt(D), **int4)))
+    plan = ikv.int_kv_launch_plan(torch.device(dev, 0), B, H, KV, D, P, R,
+                                  ikv._form(**int4))
+    block0 = [torch.tensor(sorted(x for w in ikv.int_kv_plan_tokens(
+        plan, R)[0] for x in w[i]), dtype=torch.long, device=dev)
+        for i in (0, 1)]
+    log(f"  plan: {plan.splits} blocks a pair; the first reads "
+        f"{block0[0].numel()} main tokens and {block0[1].numel()} ring rows")
+    faults.append(("the first block's partial left out of the merge", got,
+                   int_kv_fault_plain(q, *args, ml, rl, scale=1 / math.sqrt(D),
+                                      drop=block0)))
+    q4 = (q.float() * 4).to(bf16)
+    faults.append(("the pair's max from the first block alone (q x 4)",
+                   ikv.int_kv_decode_attention(q4, *args, ml_mix, rl, **int4),
+                   int_kv_fault_plain(q4, *args, ml_mix, rl,
+                                      scale=1 / math.sqrt(D), max_of=block0)))
+    ok, _ = int_kv_reading("the same, no fault (q x 4)", faults[-1][1],
+                           ikv.int_kv_decode_plain(q4, *args, ml_mix, rl,
+                                                   scale=1 / math.sqrt(D),
+                                                   **int4), rtol=2 ** -7)
+    if not ok:
+        failures.append("int_kv_decode q x 4")
+    for what, out, faulted in faults:
+        if int_kv_reading(f"planted fault, {what}", out, faulted,
+                          rtol=2 ** -7 if "q x 4" in what else 0.0)[0]:
+            failures.append(f"the tolerance misses the planted fault: {what}")
 
     rl = torch.full((B,), R, dtype=torch.int32, device=dev)
     ms = timer(lambda: ikv.int_kv_decode_attention(q, *args, ml, rl, **int4))
     plain = timer(lambda: ikv.int_kv_decode_plain(q, *args, ml, rl,
                                                   scale=1 / math.sqrt(D),
                                                   **int4))
-    kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), kcfg)
-    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-    mask = torch.ones((B, 1, 1, P + R), dtype=torch.bool, device=dev)
-    q4 = q[:, :, None, :]
-    lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask))
-    # bytes this run's data needs: word rows below main_len, the scales of
-    # valid tokens, valid residual rows, q and out
-    n_tok = int(ml.sum())
-    n_rows = int(torch.clamp(ml, max=P // 8).sum())
-    n_res = int(rl.sum())
-    nbytes = (2 * KV * n_rows * D * 4 + 2 * KV * n_tok * 4
-              + 2 * KV * n_res * D * 2 + 2 * B * H * D * 2 + 2 * B * 4)
-    b, by = bound_ms(nbytes, 4 * H * (n_tok + n_res) * D)
+    lib = sdpa_over_cache_ms(torch, timer, q, cache, kcfg, k_res, v_res)
+    stream = timer(byte_stream(torch, args))
+    # every word row, scale and ring row at full lengths; q and out
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + 2 * q.numel() * 2 + 2 * B * 4)
+    b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
     log(f"  time B={B} main_len={P} res_len={R}: kernel_ms {ms:.4f} "
-        f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} ({by})")
+        f"plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA over the "
+        f"dequantized cache) stream_ms {stream:.4f} (int64 sum of the same "
+        f"bytes) bound_ms {b:.4f} ({by}, {nbytes / 1e6:.1f} MB)")
     rows["int_kv_decode"] = dict(
         name="int_kv_decode", route="cuda",
         source="quantized_training_torch/csrc/int_kv_decode.cu",
         replaces="quantized_training_tpu/ops/pallas/int_kv_attention.py:77",
         max_abs_err=max_err, shape="decode B=8 H=KV=32 D=128 P=2048 R=128 full",
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+        ms=ms, plain_ms=plain, library_ms=lib, stream_ms=stream, bound_ms=b,
+        bound_by=by)
     if failures:
         fail("kernel disagrees with its plain version: " + ", ".join(failures))
     return rows
@@ -1872,37 +1910,89 @@ def kivi_tolerances():
                         for (d, b, p), (a, c) in KIVI_TOL.items()))
 
 
-# The integer-dot and K^T forms of the int-sym decode (kernel 7): one
-# block per (batch, kv head) rounds where the TPU kernel rounds (qs over
-# the (G, D) q tile, ps over the whole (G, P) tile after the global max),
-# and both integer dots are exact, so an output differs from the plain
-# version's only where an exp or an f32 sum differs by an ulp and moves a
-# p8 code or the bf16 output a step.  Readings on the H100 over two runs
-# (slice 5; G = 1, mean |plain| 0.03-0.13): at most 9.8e-4 and 0.00027 of the
-# outputs outside 1e-4 + 1e-3|plain| in every form; the planted faults put
-# 0.90 (ps per 256-token split), 0.97 (the neighbouring head's qs) and
-# 0.998 (K^T read untransposed) of them outside.
-TILE_ATOL, TILE_TIGHT, TILE_CAP = 2e-3, (1e-4, 1e-3), 0.005
+# Every form of the int-sym decode (kernel 7) rounds where the TPU kernel
+# rounds: bf16(q * scale) (or q8 against one qs over the (G, D) q tile),
+# bf16(p * vs) (or p8 against one ps over the whole (G, P) tile) after the
+# pair's global max, the integer dots exact, so an output differs from the
+# plain version's only where an exp or an f32 sum differs by an ulp and
+# moves a p code or the bf16 output a step.  Readings on the H100 (slice
+# 15, every form at the 7B and Phi-3 shapes, mixed and full main lengths):
+# max error at most 9.8e-4 and 0.0004 of the outputs outside 1e-4 +
+# 1e-3|plain|.  These are slice 5's bounds of the integer-dot and K^T
+# forms, every form's now that p rounds against the pair's global max in
+# each of them.
+INT_KV_ATOL, INT_KV_TIGHT, INT_KV_CAP = 2e-3, (1e-4, 1e-3), 0.005
 
 
-def tile_tolerances():
-    return (f"max abs error at most {TILE_ATOL}, at most {TILE_CAP} of the "
-            f"outputs outside {TILE_TIGHT[0]} + {TILE_TIGHT[1]}*|plain|")
+def int_kv_tolerances():
+    return (f"max abs error at most {INT_KV_ATOL}, at most {INT_KV_CAP} of "
+            f"the outputs outside {INT_KV_TIGHT[0]} + {INT_KV_TIGHT[1]}"
+            f"*|plain|")
 
 
-def tile_reading(name, got, want):
-    """The bounds above: (within them, max abs error); prints the share."""
+def int_kv_reading(name, got, want, rtol=0.0):
+    """The bounds above: (within them, max abs error); prints the share.
+    ``rtol``: room of rtol*|plain| beside INT_KV_ATOL, for outputs whose
+    magnitude makes one bf16 step of them larger than the atol."""
     import torch
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     w = want.float().abs()
-    share = float((err > TILE_TIGHT[0] + TILE_TIGHT[1] * w).float().mean())
-    ok = bool(got.float().isfinite().all()) and float(err.max()) <= TILE_ATOL \
-        and share <= TILE_CAP
+    share = float((err > INT_KV_TIGHT[0] + INT_KV_TIGHT[1] * w).float().mean())
+    ok = bool(got.float().isfinite().all()) \
+        and bool((err <= INT_KV_ATOL + rtol * w).all()) and share <= INT_KV_CAP
     log(f"  {name}: max_abs_err {float(err.max()):.4g}, mean |plain| "
         f"{float(w.mean()):.4g}, share outside {share:.5f} "
         f"{'ok' if ok else 'BREACH'}")
     return ok, float(err.max())
+
+
+def int_kv_fault_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
+                       ml, rl, *, scale, drop=None, max_of=None):
+    """The int4 bf16-dot plain version (ops/int_kv_attention.py) with one
+    planted fault of the cluster: ``drop`` (main tokens, ring rows) left
+    out of the output, as if one block's partial were lost in the merge;
+    or each head's max taken over ``max_of`` (main tokens, ring rows)
+    alone, as if the pair's max came from one block."""
+    import torch
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    bf16 = torch.bfloat16
+    B, H, D = q.shape
+    KV, P, R = k_codes.shape[1], k_scale.shape[-1], k_res.shape[2]
+    qb = (q.float().reshape(B, KV, H // KV, D) * scale).to(bf16).float()
+    s_m = torch.matmul(qb, ikv._unpack_planar(k_codes, 4).float()
+                       .transpose(-1, -2)) * k_scale
+    s_r = torch.matmul(qb, k_res.float().transpose(-1, -2))
+    vis_m = (torch.arange(P, device=q.device) < ml.reshape(B, 1, 1, 1)) \
+        .expand_as(s_m).clone()
+    vis_r = (torch.arange(R, device=q.device) < rl.reshape(B, 1, 1, 1)) \
+        .expand_as(s_r).clone()
+    if drop is not None:
+        vis_m[..., drop[0]] = False
+        vis_r[..., drop[1]] = False
+    s_m = torch.where(vis_m, s_m, -torch.inf)
+    s_r = torch.where(vis_r, s_r, -torch.inf)
+    m = torch.maximum(s_m.amax(-1, keepdim=True), s_r.amax(-1, keepdim=True))
+    if max_of is not None:
+        m0 = torch.maximum(s_m[..., max_of[0]].amax(-1, keepdim=True),
+                           s_r[..., max_of[1]].amax(-1, keepdim=True))
+        m = torch.where(m0 == -torch.inf, m, m0)
+    p_m, p_r = torch.exp(s_m - m), torch.exp(s_r - m)
+    l = p_m.sum(-1, keepdim=True) + p_r.sum(-1, keepdim=True)
+    acc = torch.matmul((p_m * v_scale).to(bf16).float(),
+                       ikv._unpack_planar(v_codes, 4).float())
+    acc = acc + torch.matmul(p_r.to(bf16).float(), v_res.float())
+    return (acc / l).to(bf16).reshape(B, H, D)
+
+
+def byte_stream(torch, tensors):
+    """One PyTorch call that reads the bytes a decode kernel reads at full
+    lengths (``tensors``, copied into one buffer): an int64 sum, what one
+    library call takes to stream them."""
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    buf = flat.view(torch.int64)
+    return lambda: buf.sum()
 
 
 def int_dots_plain(q, kc, ks, vc, vs, kr, vr, ml, rl, *, scale, kt,
@@ -1977,14 +2067,9 @@ def sdpa_over_cache_ms(torch, timer, q, cache, cfg, k_res, v_res):
 
 
 def kivi_stream(torch, cache, k_res, v_res):
-    """One PyTorch call that reads the bytes kernel 8 reads at full lengths
-    (code words or bytes, qparams, both rings; copied into one buffer): an
-    int64 sum, what one library call takes to stream them."""
-    flat = torch.cat([t.reshape(-1).view(torch.uint8)
-                      for t in (*cache[:6], k_res, v_res)])
-    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
-    buf = flat.view(torch.int64)
-    return lambda: buf.sum()
+    """byte_stream of what kernel 8 reads at full lengths: code words or
+    bytes, qparams, both rings."""
+    return byte_stream(torch, (*cache[:6], k_res, v_res))
 
 
 def kivi_dequant_phase(torch, failures):
@@ -2197,13 +2282,8 @@ def storage_kernel_phases(torch, timer):
             stream_ms=stream, bound_ms=b, bound_by=by)
         del cache, args
 
-    # ---- int-sym decode with int8 codes (kernel 7) -----------------------
-    # As the int4 form: p*vs rounded against each split's own max.  The
-    # first card call read 2.05e-3 in a slot of one main and one residual
-    # token (each split's p is 1 there); the planted fault needs 1.4e-2.
-    atol, rtol = 4e-3, 2e-2
-    log(f"phase 2/3: int_kv_decode, int8 codes (tolerance {atol} + "
-        f"{rtol}*|plain|)")
+    # ---- int-sym decode with int8 codes (kernel 7): INT_KV_* bounds ------
+    log(f"phase 2/3: int_kv_decode, int8 codes ({int_kv_tolerances()})")
     B, H, KV, D, P, R = 8, 32, 32, 128, 2048, 128
     kcfg = kvc.KVCacheConfig.int_sym(P, R, 8)
     cache = kvc.prefill_cache(
@@ -2222,46 +2302,47 @@ def storage_kernel_phases(torch, timer):
                        (torch.full((B,), P, dtype=torch.int32, device=dev),
                         64)]:
         rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
-        err = check(f"main_len={ml.tolist()} res_len={rl_val}",
-                    ikv.int_kv_decode_attention(q, *sym, ml, rl, **bf),
-                    ikv.int_kv_decode_plain(q, *sym, ml, rl, **bf,
-                                            scale=D ** -0.5), atol, rtol)
+        ok, err = int_kv_reading(
+            f"main_len={ml.tolist()} res_len={rl_val}",
+            ikv.int_kv_decode_attention(q, *sym, ml, rl, **bf),
+            ikv.int_kv_decode_plain(q, *sym, ml, rl, **bf, scale=D ** -0.5))
         max_err = max(max_err, err)
+        if not ok:
+            failures.append(f"int_kv_decode int8 res_len={rl_val}")
     got = ikv.int_kv_decode_attention(q, *sym, ml, rl, **bf)
     vs_f = cache.v_scale.clone()
     vs_f[..., 768:1024] = cache.v_scale[..., 769:1025]
-    planted_fault(f"main_len={P} res_len=64, split 3 reads the next token's "
-                  "v scale", got,
-                  ikv.int_kv_decode_plain(q, cache.k_codes, cache.k_scale,
-                                          cache.v_codes, vs_f, k_res, v_res,
-                                          ml, rl, **bf, scale=D ** -0.5),
-                  atol, rtol, failures)
+    if int_kv_reading(
+            f"planted fault, main_len={P} res_len=64, tokens 768..1023 read "
+            "the next token's v scale", got,
+            ikv.int_kv_decode_plain(q, cache.k_codes, cache.k_scale,
+                                    cache.v_codes, vs_f, k_res, v_res, ml, rl,
+                                    **bf, scale=D ** -0.5))[0]:
+        failures.append("the tolerance misses the planted fault: int8 "
+                        "tokens 768..1023 on the next token's v scale")
     rl = torch.full((B,), R, dtype=torch.int32, device=dev)
     ms = timer(lambda: ikv.int_kv_decode_attention(q, *sym, ml, rl, **bf))
     plain = timer(lambda: ikv.int_kv_decode_plain(
         q, *sym, ml, rl, **bf, scale=D ** -0.5), reps=5)
-    kd, vd = kvc.cache_kv(cache._replace(k_res=k_res, v_res=v_res), kcfg)
-    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-    mask = torch.ones((B, 1, 1, P + R), dtype=torch.bool, device=dev)
-    lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask))
-    del kd, vd
-    nbytes = (2 * B * KV * P * D + 2 * B * KV * P * 4 + 2 * k_res.numel() * 2
+    lib = sdpa_over_cache_ms(torch, timer, q, cache, kcfg, k_res, v_res)
+    stream = timer(byte_stream(torch, sym))
+    nbytes = (sum(t.numel() * t.element_size() for t in sym)
               + 2 * q.numel() * 2 + 2 * B * 4)
     b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
     log(f"  time B={B} main_len={P} res_len={R}: kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} ({by})")
+        f"{plain:.4f} library_ms {lib:.4f} stream_ms {stream:.4f} bound_ms "
+        f"{b:.4f} ({by}, {nbytes / 1e6:.1f} MB)")
     rows["int_kv_decode_8bit"] = dict(
         name="int_kv_decode_8bit", route="cuda",
         source="quantized_training_torch/csrc/int_kv_decode.cu",
         replaces="quantized_training_tpu/ops/pallas/int_kv_attention.py:77",
         max_abs_err=max_err, shape="decode B=8 H=KV=32 D=128 P=2048 R=128 "
         "int8 codes, full", ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=b, bound_by=by)
+        stream_ms=stream, bound_ms=b, bound_by=by)
 
-    # ---- int-sym decode, integer-dot and K^T forms (kernel 7): TILE_* ----
-    log(f"phase 2/3: int_kv_decode_tile, int8 codes, integer-dot and K^T "
-        f"forms ({tile_tolerances()})")
+    # ---- int-sym decode, integer-dot and K^T forms (kernel 7) -------------
+    log(f"phase 2/3: int_kv_decode, int8 codes, integer-dot and K^T forms "
+        f"({int_kv_tolerances()})")
     kT = cache.k_codes.transpose(2, 3).contiguous()
     scale = D ** -0.5
 
@@ -2277,13 +2358,13 @@ def storage_kernel_phases(torch, timer):
         max_err = 0.0
         for ml, rl_val in [(ml_mix, 1), (ml_mix, R), (full, 64)]:
             rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
-            ok, err = tile_reading(
+            ok, err = int_kv_reading(
                 f"{form} main_len={ml.tolist()} res_len={rl_val}",
                 ikv.int_kv_decode_attention(*args, ml, rl, **form),
                 ikv.int_kv_decode_plain(*args, ml, rl, scale=scale, **form))
             max_err = max(max_err, err)
             if not ok:
-                failures.append(f"int_kv_decode_tile {form} res_len={rl_val}")
+                failures.append(f"int_kv_decode {form} res_len={rl_val}")
         rl = torch.full((B,), 64, dtype=torch.int32, device=dev)
         got = ikv.int_kv_decode_attention(*args, full, rl, **form)
         faults = []
@@ -2304,7 +2385,7 @@ def storage_kernel_phases(torch, timer):
                 q, untransposed.contiguous(), cache.k_scale, cache.v_codes,
                 cache.v_scale, k_res, v_res, full, rl, scale=scale, **form)))
         for what, faulted in faults:
-            if tile_reading(f"planted fault, {what}", got, faulted)[0]:
+            if int_kv_reading(f"planted fault, {what}", got, faulted)[0]:
                 failures.append(f"the tolerance misses the planted fault: "
                                 f"{what} ({form})")
         rl = torch.full((B,), R, dtype=torch.int32, device=dev)
@@ -2312,16 +2393,19 @@ def storage_kernel_phases(torch, timer):
                                                        **form))
         plain = timer(lambda: ikv.int_kv_decode_plain(
             *args, full, rl, scale=scale, **form), reps=5)
+        stream = timer(byte_stream(torch, args[1:]))
         log(f"  time {form} B={B} main_len={P} res_len={R}: kernel_ms "
             f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA over "
-            f"the dequantized cache, as above) bound_ms {b:.4f} ({by})")
+            f"the dequantized cache, as above) stream_ms {stream:.4f} "
+            f"bound_ms {b:.4f} ({by})")
         rows[key] = dict(
             name=key, route="cuda",
             source="quantized_training_torch/csrc/int_kv_decode.cu",
             replaces="quantized_training_tpu/ops/pallas/int_kv_attention.py:77",
             max_abs_err=max_err, shape=f"decode B=8 H=KV=32 D=128 P=2048 "
             f"R=128 int8 codes, int_dots={int_dots} k_transposed={kt}, full",
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+            ms=ms, plain_ms=plain, library_ms=lib, stream_ms=stream,
+            bound_ms=b, bound_by=by)
     del cache, sym, k_res, v_res, kT
 
     # ---- storage GEMMs (kernels 9, 10 and 5 at nbits=2) -------------------
@@ -3152,11 +3236,11 @@ GQA_EDGE = dict(B=2, H=16, KV=2, D=64, P=1024, R=32)
 
 
 def gqa_kernel_phases(torch, timer):
-    """Slice 7's kernel forms: the GQA groups and D=64 of kernel 7 (split:
-    int4 and int8 bf16 dots; whole tile: integer dots, K^T, both) and of
-    kernel 8 (packed uint2, packed uint4, uint8 codes), each at the
-    Phi-3-medium decode shape and at the D=64 G=8 edge against its plain
-    version, with the tolerances slices 1, 4 and 5 set for the same form.
+    """Slice 7's kernel forms: the GQA groups and D=64 of kernel 7 (int4
+    and int8 bf16 dots; integer dots, K^T, both) and of kernel 8 (packed
+    uint2, packed uint4, uint8 codes), each at the Phi-3-medium decode shape
+    and at the D=64 G=8 edge against its plain version, with kernel 7's
+    INT_KV_* bounds and kernel 8's KIVI_TOL.
     Planted faults: query head h reading kv head h % KV instead of h // G
     (both kernels), q quantized per head instead of over the (G, D) tile
     (integer dots), head 0's K zero-point constants used for every head
@@ -3200,24 +3284,8 @@ def gqa_kernel_phases(torch, timer):
         return (f"B={g['B']} H={g['H']} KV={g['KV']} D={g['D']} P={g['P']} "
                 f"R={g['R']}")
 
-    # ---- kernel 7, split forms (bf16 dots over untransposed codes) ---------
-    # The kernel rounds p * vs against its split's own max, the plain
-    # version against the global one.  In a slot of one main and one
-    # residual token each split's p is 1, and the output is a weighted
-    # mean of two whole V rows (|v| up to 7 vs), so the two roundings of
-    # their weights part by up to 2^-9 of each: on the H100 (slice 7) one
-    # head of the Phi-3 shape's 320 read 0.0156 against |out| 0.61, an
-    # atol of 3.34e-3 at int4 and 3.06e-3 at int8 (the 7B's 32 heads in
-    # that slot had read at most 2.05e-3: slice 1's int4 2e-3, slice 4's
-    # int8 4e-3); the floor is 2^-9 of two V rows of up to 7 vs, about
-    # 0.016.  So the GQA forms take an atol above the readings and slice
-    # 1's int4 bound as the tight one, as the KIVI forms do: at most 0.5%
-    # of the outputs may lie outside 2e-3 + 0.02|plain|, which a fault of
-    # the head map or of a split moves in every slot it touches.
-    int_atol, int_cap, int_tight = 8e-3, 0.005, 2e-3
-    log(f"phase 2/3: int_kv_decode, GQA forms (tolerance {int_atol} + "
-        f"{KIVI_RTOL}*|plain|, at most {int_cap} of the outputs outside "
-        f"{int_tight} + {KIVI_RTOL}*|plain|)")
+    # ---- kernel 7, bf16 dots over untransposed codes: INT_KV_* bounds ------
+    log(f"phase 2/3: int_kv_decode, GQA forms ({int_kv_tolerances()})")
     int8_phi3 = None
     for g in (PHI3_DECODE, GQA_EDGE):
         B, H, KV, D, P, R = (g[k] for k in "B H KV D P R".split())
@@ -3236,21 +3304,19 @@ def gqa_kernel_phases(torch, timer):
             for ml, rl_val in [(mix, 1), (mix, R), (full, 64)]:
                 rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
                 got = ikv.int_kv_decode_attention(q, *args, ml, rl, **form)
-                ok, err = floor_reading(
+                ok, err = int_kv_reading(
                     f"{shape_name(g)} int{bits} main_len={ml.tolist()} "
                     f"res_len={rl_val}", got, ikv.int_kv_decode_plain(
-                        q, *args, ml, rl, scale=D ** -0.5, **form),
-                    int_atol, int_cap, int_tight)
+                        q, *args, ml, rl, scale=D ** -0.5, **form))
                 max_err = max(max_err, err)
                 if not ok:
                     failures.append(f"int_kv_decode GQA {shape_name(g)} "
                                     f"int{bits} res_len={rl_val}")
             what = f"{shape_name(g)} int{bits}, head h reads kv head h % KV"
-            fault_breaches(what, floor_reading(
+            fault_breaches(what, int_kv_reading(
                 f"planted fault, {what}", got, head_map_fault(
                     ikv.int_kv_decode_plain, q, *args, ml, rl,
-                    scale=D ** -0.5, **form),
-                int_atol, int_cap, int_tight)[0])
+                    scale=D ** -0.5, **form))[0])
             if g is not PHI3_DECODE:
                 continue
             rl = torch.full((B,), R, dtype=torch.int32, device=dev)
@@ -3259,14 +3325,15 @@ def gqa_kernel_phases(torch, timer):
             plain = timer(lambda: ikv.int_kv_decode_plain(
                 q, *args, full, rl, scale=D ** -0.5, **form), reps=5)
             lib = library_ms(q, cache, kcfg, k_res, v_res, P, R)
+            stream = timer(byte_stream(torch, args))
             # every word row, scale and ring row at full lengths; q and out
-            nbytes = (2 * B * KV * (P // (8 if bits == 4 else 1)) * D
-                      * (4 if bits == 4 else 1) + 2 * B * KV * P * 4
-                      + 2 * B * KV * R * D * 2 + 2 * B * H * D * 2 + 2 * B * 4)
+            nbytes = (sum(t.numel() * t.element_size() for t in args)
+                      + 2 * B * H * D * 2 + 2 * B * 4)
             b, by = bound_ms(nbytes, 4 * B * H * (P + R) * D)
             log(f"  time {shape_name(g)} int{bits}, full: kernel_ms {ms:.4f} "
                 f"plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA over the "
-                f"dequantized cache) bound_ms {b:.4f} ({by}, "
+                f"dequantized cache) stream_ms {stream:.4f} (int64 sum of "
+                f"the same bytes) bound_ms {b:.4f} ({by}, "
                 f"{nbytes / 1e6:.2f} MB)")
             key = "int_kv_decode_gqa" + ("" if bits == 4 else "_8bit")
             rows[key] = dict(
@@ -3275,14 +3342,15 @@ def gqa_kernel_phases(torch, timer):
                 replaces="quantized_training_tpu/ops/pallas/"
                 "int_kv_attention.py:77", max_abs_err=max_err,
                 shape=f"decode {shape_name(g)} int{bits} codes, full",
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                bound_by=by)
+                ms=ms, plain_ms=plain, library_ms=lib, stream_ms=stream,
+                bound_ms=b, bound_by=by)
             if bits == 8:
                 int8_phi3 = (q, cache, kcfg, k_res, v_res, lib, b, by)
             del cache
 
-    # ---- kernel 7, whole-tile forms at G = 4 (and the edge) ----------------
-    log(f"phase 2/3: int_kv_decode_tile, GQA forms ({tile_tolerances()})")
+    # ---- kernel 7, integer-dot and K^T forms at G = 4 (and the edge) -------
+    log(f"phase 2/3: int_kv_decode, GQA integer-dot and K^T forms "
+        f"({int_kv_tolerances()})")
     for g in (PHI3_DECODE, GQA_EDGE):
         B, H, KV, D, P, R = (g[k] for k in "B H KV D P R".split())
         if g is PHI3_DECODE:
@@ -3305,7 +3373,7 @@ def gqa_kernel_phases(torch, timer):
             max_err = 0.0
             for ml, rl_val in [(mix, 1), (mix, R), (full, 64)]:
                 rl = torch.full((B,), rl_val, dtype=torch.int32, device=dev)
-                ok, err = tile_reading(
+                ok, err = int_kv_reading(
                     f"{shape_name(g)} {form} main_len={ml.tolist()} "
                     f"res_len={rl_val}",
                     ikv.int_kv_decode_attention(*args, ml, rl, **form),
@@ -3313,7 +3381,7 @@ def gqa_kernel_phases(torch, timer):
                                             **form))
                 max_err = max(max_err, err)
                 if not ok:
-                    failures.append(f"int_kv_decode_tile GQA {shape_name(g)} "
+                    failures.append(f"int_kv_decode GQA {shape_name(g)} "
                                     f"{form} res_len={rl_val}")
             got = ikv.int_kv_decode_attention(*args, full, rl, **form)
             faults = [("head h reads kv head h % KV", head_map_fault(
@@ -3326,7 +3394,7 @@ def gqa_kernel_phases(torch, timer):
                                    q_per_head=True)))
             for what, faulted in faults:
                 fault_breaches(f"{what} ({shape_name(g)} {form})",
-                               tile_reading(f"planted fault, {what}", got,
+                               int_kv_reading(f"planted fault, {what}", got,
                                             faulted)[0])
             if g is not PHI3_DECODE:
                 continue
@@ -3335,9 +3403,11 @@ def gqa_kernel_phases(torch, timer):
                                                            **form))
             plain = timer(lambda: ikv.int_kv_decode_plain(
                 *args, full, rl, scale=D ** -0.5, **form), reps=5)
+            stream = timer(byte_stream(torch, args[1:]))
             log(f"  time {shape_name(g)} {form}, full: kernel_ms {ms:.4f} "
                 f"plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA, as the "
-                f"int8 split form) bound_ms {b:.4f} ({by})")
+                f"int8 bf16-dot form) stream_ms {stream:.4f} bound_ms "
+                f"{b:.4f} ({by})")
             rows[key] = dict(
                 name=key, route="cuda",
                 source="quantized_training_torch/csrc/int_kv_decode.cu",
@@ -3345,7 +3415,8 @@ def gqa_kernel_phases(torch, timer):
                 "int_kv_attention.py:77", max_abs_err=max_err,
                 shape=f"decode {shape_name(g)} int8 codes, int_dots="
                 f"{int_dots} k_transposed={kt}, full", ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+                plain_ms=plain, library_ms=lib, stream_ms=stream, bound_ms=b,
+                bound_by=by)
         del cache, kT
     del int8_phi3
 
@@ -5109,7 +5180,7 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
     decode_prof = None
     if cache == "int4":
         # one decode forward, traced: kernel 5's decode form and the int4
-        # decode (int_kv_split and its merge) beside the rest of the device
+        # decode (int_kv_mma) beside the rest of the device
         def decode_forward():
             with torch.no_grad():
                 model(engine.tokens, positions=positions, use_cache=True,
@@ -5219,24 +5290,28 @@ def main():
             if re.search(r"C751[23]", line) and fn in line:
                 fail(f"{name}: ptxas serialized {fn}'s wgmma: "
                      f"{line.strip()}")
-    # kernel 8 (the KIVI decode) may neither spill nor carry C7512/C7513
-    fn = None
-    for line in report.get("kivi_decode", {}).get("log", "").splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            fn = m.group(1)
-        if re.search(r"C751[23]", line) and "kivi" in line:
-            fail(f"kivi_decode: ptxas serialized a product: {line.strip()}")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and fn and "kivi_mma" in fn and (int(m.group(1))
-                                                or int(m.group(2))):
-            fail(f"kivi_decode: ptxas spills in {fn}: {line.strip()}")
+    # kernels 8 and 7 (the KIVI and int-sym decodes) may neither spill nor
+    # carry C7512/C7513
+    for name, kern in (("kivi_decode", "kivi_mma"),
+                       ("int_kv_decode", "int_kv_mma")):
+        fn = None
+        for line in report.get(name, {}).get("log", "").splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            if re.search(r"C751[23]", line) and name.split("_")[0] in line:
+                fail(f"{name}: ptxas serialized a product: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn and kern in fn and (int(m.group(1))
+                                            or int(m.group(2))):
+                fail(f"{name}: ptxas spills in {fn}: {line.strip()}")
     # kernels 1-4, 5, 9 and 10 compute their products on the tensor cores:
     # every kernel function of the two flash libraries, the storage GEMM's
     # w4_gemm_tc and the byte storage GEMMs' gemm_tc hold wgmma (HGMMA)
     # instructions; kernels 5, 9 and 10 at M <= 8 (w4_gemm_decode,
-    # gemm_decode) hold mma.sync (HMMA) ones
+    # gemm_decode) and the decode attentions, kernels 8 and 7, hold mma.sync
+    # (HMMA, and IMMA for kernel 7's integer dots) ones
     need = {"flash_attn_fwd": [("", "HGMMA")],
             "flash_attn_bwd": [("", "HGMMA")],
             "affine_w4_matmul": [("w4_gemm_tc", "HGMMA"),
@@ -5245,7 +5320,12 @@ def main():
                                   ("7gemm_tc", "HGMMA")],
             "posit_storage_matmul": [("gemm_decode", "HMMA"),
                                      ("7gemm_tc", "HGMMA")],
-            "kivi_decode": [("kivi_mma", "HMMA")]}
+            "kivi_decode": [("kivi_mma", "HMMA")],
+            # kernel 7: every form's products on mma.sync, the integer dots
+            # (forms 3 and 4, the first template argument) as IMMA
+            "int_kv_decode": [("int_kv_mma", "HMMA"),
+                              ("int_kv_mmaILi3E", "IMMA"),
+                              ("int_kv_mmaILi4E", "IMMA")]}
     for lib, forms in need.items():
         for part in _cuda.sass(lib).split("Function : ")[1:]:
             fn = part.split("\n", 1)[0].strip()
@@ -5253,9 +5333,12 @@ def main():
                 if only not in fn:
                     continue
                 n_mma = {o: len(re.findall(rf"\b{o}\.", part))
-                         for o in ("HGMMA", "HMMA")}
-                log(f"  {lib} SASS, {fn[:70]}: {n_mma['HGMMA']} HGMMA and "
-                    f"{n_mma['HMMA']} HMMA instructions")
+                         for o in ("HGMMA", "HMMA", "IMMA")}
+                shown = fn[fn.find("int_kv_mma"):] if "int_kv_mma" in fn \
+                    else fn
+                log(f"  {lib} SASS, {shown[:70]}: {n_mma['HGMMA']} HGMMA, "
+                    f"{n_mma['HMMA']} HMMA and {n_mma['IMMA']} IMMA "
+                    f"instructions")
                 if not n_mma[op]:
                     fail(f"{lib}: {fn} has no {op} instruction")
 

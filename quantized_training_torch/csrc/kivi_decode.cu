@@ -716,26 +716,9 @@ kivi_mma(const Args a) {
         }
     }
   }
-  cluster_finish<G, D>(warps, warps + WARPS * G * rec, rec, a.bsV, splits,
-                       a.out + (static_cast<size_t>(b) * H + kvh * G) * D);
-}
-
-// Calls f(D, G) as std::integral_constants for an instantiated head dim D
-// in {64, 128} and group G in {1, 2, 4, 8}; false for any other pair.
-template <typename Fn>
-bool with_dg(int D, int G, Fn&& f) {
-  auto at = [&](auto d) {
-    switch (G) {
-      case 1: f(d, std::integral_constant<int, 1>{}); return true;
-      case 2: f(d, std::integral_constant<int, 2>{}); return true;
-      case 4: f(d, std::integral_constant<int, 4>{}); return true;
-      case 8: f(d, std::integral_constant<int, 8>{}); return true;
-      default: return false;
-    }
-  };
-  if (D == 64) return at(std::integral_constant<int, 64>{});
-  if (D == 128) return at(std::integral_constant<int, 128>{});
-  return false;
+  cluster_finish<G, D, EXTRA_BF16>(
+      warps, warps + WARPS * G * rec, rec, a.bsV, 0.f, splits,
+      a.out + (static_cast<size_t>(b) * H + kvh * G) * D);
 }
 
 // The launch's shared memory: the rings (or the warps' and the block's
@@ -757,20 +740,13 @@ size_t smem_bytes(const Args& a, int G) {
          static_cast<size_t>(WARPS + 1) * G * 4;
 }
 
-constexpr size_t MAX_SMEM = 227 * 1024;
-
 template <int D, int G, int BITS>
 int launch(const Args& a, int B, int splits, cudaStream_t st) {
   const size_t smem = smem_bytes(a, G);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  static size_t allowed = 48 * 1024;  // per instantiation
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kivi_mma<D, G, BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
-  }
+  if (smem > static_cast<size_t>(MAX_SMEM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t cap = allow_smem<kivi_mma<D, G, BITS>>();
+  if (cap != cudaSuccess) return static_cast<int>(cap);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, a.KV, B);
   cfg.blockDim = dim3(THREADS);
@@ -885,16 +861,15 @@ int kivi_decode_blocks_per_sm(int D, int G, int bits, long long smem) {
   int n = 0;
   with_dg(D, G, [&](auto d, auto g) {
     constexpr int DD = decltype(d)::value, GG = decltype(g)::value;
-    auto occ = [&](auto kernel) {
-      if (smem > 48 * 1024)
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    auto occ = [&](auto form) {
+      constexpr auto kernel = kivi_mma<DD, GG, decltype(form)::value>;
+      allow_smem<kernel>();
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS,
                                                     static_cast<size_t>(smem));
     };
-    if (bits == 2) occ(kivi_mma<DD, GG, 2>);
-    else if (bits == 4) occ(kivi_mma<DD, GG, 4>);
-    else occ(kivi_mma<DD, GG, 0>);
+    if (bits == 2) occ(std::integral_constant<int, 2>{});
+    else if (bits == 4) occ(std::integral_constant<int, 4>{});
+    else occ(std::integral_constant<int, 0>{});
   });
   return n;
 }

@@ -1,5 +1,7 @@
 // The pipeline of the tensor-core GEMMs that dequantize their weight in
-// registers (affine_w4_matmul.cu:w4_gemm_tc, byte_storage_gemm.cuh:gemm_tc):
+// registers (affine_w4_matmul.cu:w4_gemm_tc, byte_storage_gemm.cuh:gemm_tc),
+// whose mbarrier and TMA helpers the int-sym decode (int_kv_decode.cu) also
+// feeds its rings with:
 // the mbarriers that pass ring stages between a producer warp and the
 // consumer warpgroups, the TMA loads and the tensor maps they read, the
 // consumers' k loop over the ring and their output staging, and the token
@@ -91,6 +93,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// TMA: a 1-D bulk copy of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) from global memory into shared memory at dst, its bytes
+// counted on bar
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* src,
+                                            uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// makes barriers just initialized visible to the asynchronous copies
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// orders this thread's earlier accesses of shared memory before later
+// asynchronous copies into it (a ring slot read, then refilled by TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the consumers' own barrier (named barrier 1), without the producer warp

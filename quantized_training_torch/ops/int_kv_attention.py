@@ -34,17 +34,29 @@ defaults are ``bits=8, int_dots=True, k_transposed=True``):
     whole (group, P) tile, ``ps = max|p * vs|/127``, its dot with the V
     codes exact, times ps.
 The residual tier always runs the bf16 dots.
+
+On the card one launch takes a decode step in every form: the blocks of each
+(batch, kv head) pair form one cluster, whose size is
+:func:`int_kv_decode_plan`'s rule (the wrapper and ``chip_smoke.py`` read
+it through :func:`int_kv_launch_plan`, the CPU tests hold it to its
+contract), and p (and, under integer dots, ps) is taken against the pair's
+global max, where the reference's kernel takes it.
 """
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import _cuda
+from . import _cuda, _decode_gemm
+from ._decode_attn import (MAX_SMEM, MAX_SPLITS, STEP, WARPS, aligned,
+                           cluster_splits, plan_tokens)
 
-__all__ = ["KERNEL_DG", "int_kv_decode_attention", "int_kv_decode_plain"]
+__all__ = ["KERNEL_DG", "IntKvPlan", "int_kv_decode_attention",
+           "int_kv_decode_plain", "int_kv_decode_plan", "int_kv_decode_smem",
+           "int_kv_launch_plan", "int_kv_plan_tokens"]
 
 NEG_INF = -2.0 ** 30
 
@@ -132,42 +144,141 @@ def int_kv_decode_plain(q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
     return (acc / denom).to(q.dtype).reshape(B, H, D)
 
 
-# The (head dim D, query heads per kv head G) pairs the kernels are
+# The (head dim D, query heads per kv head G) pairs the kernel is
 # instantiated for (csrc/int_kv_decode.cu, with_dg), in every form.
 KERNEL_DG = tuple((d, g) for d in (64, 128) for g in (1, 2, 4, 8))
+
+
+def _form(bits: int, int_dots: bool, k_transposed: bool) -> int:
+    """The kernel's number of a form (csrc/int_kv_decode.cu: I4, I8, I8KT,
+    ID, IDKT)."""
+    if bits == 4:
+        return 0
+    return {(False, False): 1, (False, True): 2, (True, False): 3,
+            (True, True): 4}[(bool(int_dots), bool(k_transposed))]
+
+
+class _Geo(NamedTuple):
+    """A form's geometry (csrc/int_kv_decode.cu:Geo)."""
+    per: int      # tokens a main-tier row
+    step: int     # tokens a main step
+    unit: int     # rows a main step
+    stage: int    # bytes of a ring slot
+    stages: int   # ring slots a warp
+    rec: int      # floats of a head's partial
+
+
+def _geo(form: int, D: int) -> _Geo:
+    per = 8 if form == 0 else 1
+    step = 16 if form in (0, 1) else 32
+    unit = step // per
+    rowb = 4 * D if form == 0 else D
+    sps = 2 if form in (0, 2, 4) else 1
+    kstage = D * sps * step if form in (2, 4) else sps * unit * rowb
+    stage = max(kstage, sps * unit * rowb)
+    return _Geo(per, step, unit, stage, 2 if stage >= 4096 else 4,
+                1 + (2 if form in (3, 4) else 1) * D)
+
+
+def int_kv_decode_smem(form: int, D: int, G: int, P: int, R: int,
+                       splits: int) -> int:
+    """Bytes of shared memory a block of the kernel's launch needs (the
+    library's ``layout``), from a 1024-byte line: the rings (or the
+    partials, whichever is larger), the ring barriers, each warp's run of
+    scales and its scores (G floats a token) until the cluster knows the
+    pair's max, the maxima."""
+    geo = _geo(form, D)
+    W = WARPS * splits
+    max_main = -(-(-(-(P // geo.per) // geo.unit)) // W)
+    max_res = -(-(-(-R // STEP)) // W)
+    ring = WARPS * geo.stages * geo.stage
+    parts = (WARPS + 1) * G * geo.rec * 4
+    sbuf0 = (max(ring, parts) + 15) // 16 * 16 + WARPS * geo.stages * 8
+    scores0 = sbuf0 + WARPS * max_main * geo.step * 4
+    max0 = scores0 + WARPS * (max_main * geo.step + max_res * STEP) * G * 4
+    return max0 + (2 * WARPS * G + 2 * G) * 4 + 1024  # + the alignment
+
+
+class IntKvPlan(NamedTuple):
+    """How one launch cuts each (batch, kv head) pair's tokens: the pair's
+    ``splits`` blocks form one cluster, whose 4 * splits warps share each
+    tier's steps evenly, in order (``ops/_decode_attn.py``).  A main step
+    is ``unit`` rows (word rows of int4 codes, whose plane p holds token p
+    * rows + r, or one int8 row a token), a residual step 16 ring rows.
+    ``smem``: the bytes of shared memory a block needs (at most MAX_SMEM,
+    or the kernel refuses the call).  The grid is (splits, KV, B)."""
+    splits: int
+    rows: int
+    unit: int
+    per: int
+    main_steps: int
+    res_steps: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def int_kv_decode_plan(B: int, KV: int, P: int, R: int, D: int, G: int,
+                       form: int, sms: int = 132,
+                       blocks_per_sm=4) -> IntKvPlan:
+    """The split of csrc/int_kv_decode.cu's launch (the one rule; the
+    kernel takes it as its ``splits`` argument): the decode kernels' rule
+    (``_decode_attn.cluster_splits``: one wave of ``blocks_per_sm`` blocks
+    an SM, a count or a tuple of the counts at 1, 2, 4 and 8 blocks a pair;
+    every warp a step), then more blocks a pair, up to 8, while a block's
+    scores outgrow its shared memory."""
+    geo = _geo(form, D)
+    rows = P // geo.per
+    main_steps, res_steps = -(-rows // geo.unit), -(-R // STEP)
+    splits = cluster_splits(B * KV, main_steps + res_steps, sms,
+                            blocks_per_sm)
+    while splits < MAX_SPLITS and \
+            int_kv_decode_smem(form, D, G, P, R, splits) > MAX_SMEM:
+        splits *= 2
+    return IntKvPlan(splits, rows, geo.unit, geo.per, main_steps, res_steps,
+                     int_kv_decode_smem(form, D, G, P, R, splits))
+
+
+def int_kv_plan_tokens(plan: IntKvPlan, R: int):
+    """[[(main tokens, residual rows) of each warp] of each split], as the
+    kernel reads them before it cuts them at main_len and res_len."""
+    return plan_tokens(plan.splits, plan.rows, plan.unit, plan.per,
+                       plan.main_steps, plan.res_steps, R)
+
+
+_LAUNCH_PLANS = {}
+
+
+def int_kv_launch_plan(device: torch.device, B: int, H: int, KV: int,
+                       D: int, P: int, R: int, form: int) -> IntKvPlan:
+    """int_kv_decode_plan for a launch on ``device``: its SM count and the
+    blocks of the kernel an SM holds at each split's shared memory (the
+    library's occupancy)."""
+    key = (device.index, B, H, KV, D, P, R, form)
+    plan = _LAUNCH_PLANS.get(key)
+    if plan is None:
+        G = H // KV
+        lib = _lib()
+        per_sm = tuple(max(1, lib.int_kv_decode_blocks_per_sm(
+            form, D, G, min(int_kv_decode_smem(form, D, G, P, R, s),
+                            MAX_SMEM))) for s in (1, 2, 4, 8))
+        plan = _LAUNCH_PLANS[key] = int_kv_decode_plan(
+            B, KV, P, R, D, G, form, _decode_gemm.sm_count(device), per_sm)
+    return plan
 
 
 def _lib():
     lib = _cuda.load("int_kv_decode")
     if lib.int_kv_decode.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.int_kv_decode.argtypes = [vp] * 13 + [ci] * 7 + [ctypes.c_float,
-                                                              vp]
+        lib.int_kv_decode.argtypes = ([vp] * 10 + [ci] * 7
+                                      + [ctypes.c_float, ci, vp])
         lib.int_kv_decode.restype = ci
-        lib.int_kv_num_splits.argtypes = [ci, ci]
-        lib.int_kv_num_splits.restype = ci
-        lib.int_kv_decode_tile.argtypes = [vp] * 10 + [ci] * 8 + [
-            ctypes.c_float, vp]
-        lib.int_kv_decode_tile.restype = ci
-        ptr = ctypes.POINTER(ctypes.c_longlong)
-        lib.int_kv_tile_smem.argtypes = [ci] * 4 + [ptr, ptr]
-        lib.int_kv_tile_smem.restype = ci
+        lib.int_kv_decode_smem.argtypes = [ci] * 8
+        lib.int_kv_decode_smem.restype = ctypes.c_longlong
+        lib.int_kv_decode_blocks_per_sm.argtypes = [ci, ci, ci,
+                                                    ctypes.c_longlong]
+        lib.int_kv_decode_blocks_per_sm.restype = ci
     return lib
-
-
-def _check_tile_smem(lib, D: int, G: int, P: int, R: int) -> None:
-    """The whole-tile kernel keeps all G * (P + R) scores in shared memory:
-    refuse a shape that needs more than the card gives one block."""
-    need, avail = ctypes.c_longlong(), ctypes.c_longlong()
-    _cuda.check(lib, lib.int_kv_tile_smem(D, G, P, R, ctypes.byref(need),
-                                          ctypes.byref(avail)),
-                "int_kv_tile_smem")
-    if need.value > avail.value:
-        raise ValueError(
-            f"int_kv_decode_attention kernel: the integer-dot / K^T form at "
-            f"G={G} D={D} keeps G*(P+R) = {G * (P + R)} f32 scores in shared "
-            f"memory, {need.value} bytes with its static arrays, above the "
-            f"{avail.value} bytes this card gives one block (P={P} R={R})")
 
 
 def int_kv_decode_attention(
@@ -179,13 +290,14 @@ def int_kv_decode_attention(
     returns (B, H, D) in q's dtype.  The defaults are the reference's.
 
     CPU tensors take :func:`int_kv_decode_plain`; CUDA tensors launch the
-    kernel, and anything it does not take raises: the kernels are built for
-    head dim D in (64, 128) with G = H / KV in (1, 2, 4, 8) query heads per
-    kv head (``KERNEL_DG``).  The bf16-dot forms over untransposed codes
-    launch the split kernel (counted in ``launches``); the integer-dot and
-    K^T forms launch the whole-tile kernel (counted in ``tile_launches``),
-    which refuses a (G, P, R) whose scores do not fit one block's shared
-    memory (G = 8 takes P + R up to about 6000 on an H100).
+    kernel, and anything it does not take raises: it is built for head dim
+    D in (64, 128) with G = H / KV in (1, 2, 4, 8) query heads per kv head
+    (``KERNEL_DG``), P % 8 == 0 (P % 16 == 0 for K^T), and refuses a cache
+    whose scores outgrow a block's shared memory at 8 blocks a (batch, kv
+    head) pair (``int_kv_decode_plan``; at G = 8, D = 128 P + R about
+    34000 in the K^T forms, 44000 over untransposed codes).  Launches of
+    the bf16-dot forms over untransposed codes count in ``launches``, of
+    the integer-dot and K^T forms in ``tile_launches``.
     """
     _check_form(bits, int_dots, k_transposed)
     B, H, D = q.shape
@@ -214,7 +326,8 @@ def int_kv_decode_attention(
                         "float32 expected")
     v_shape = (B, KV, P // 8 if bits == 4 else P, D)
     k_shape = (B, KV, D, P) if k_transposed else v_shape
-    if H % KV or (D, H // KV) not in KERNEL_DG or P % 8 \
+    if H % KV or (D, H // KV) not in KERNEL_DG \
+            or P % (16 if k_transposed else 8) \
             or tuple(k_codes.shape) != k_shape \
             or tuple(v_codes.shape) != v_shape \
             or tuple(k_scale.shape) != (B, KV, 1, P) \
@@ -225,41 +338,34 @@ def int_kv_decode_attention(
         problems.append(
             f"shapes q {tuple(q.shape)} codes {tuple(k_codes.shape)} "
             f"scales {tuple(k_scale.shape)} res {tuple(k_res.shape)} "
-            f"lens {tuple(main_len.shape)} (the kernels take D in (64, 128) "
-            f"with G = H/KV in (1, 2, 4, 8), P % 8 == 0)")
+            f"lens {tuple(main_len.shape)} (the kernel takes D in (64, 128) "
+            f"with G = H/KV in (1, 2, 4, 8), P % 8 == 0, and P % 16 == 0 "
+            f"for K^T)")
     tensors = (q, k_codes, k_scale, v_codes, v_scale, k_res, v_res,
                main_len, res_len)
-    tile = int_dots or k_transposed
-    if any(not t.is_contiguous() or t.device != q.device
-           or (tile and t.data_ptr() % 16) for t in tensors):
-        problems.append("tensors must be contiguous and on one device (and "
-                        "16-byte aligned for the whole-tile kernel)")
+    if any(not t.is_contiguous() or t.device != q.device for t in tensors):
+        problems.append("tensors must be contiguous and on one device")
     if problems:
         raise ValueError("int_kv_decode_attention kernel: "
                          + "; ".join(problems))
+    form = _form(bits, int_dots, k_transposed)
+    plan = int_kv_launch_plan(q.device, B, H, KV, D, P, R, form)
+    if plan.smem > MAX_SMEM:
+        raise ValueError(
+            f"int_kv_decode_attention kernel: P={P} R={R} at G={H // KV} "
+            f"D={D} needs {plan.smem} bytes of shared memory a block for "
+            f"its scores at {plan.splits} blocks a pair (at most {MAX_SMEM})")
     lib = _lib()
-    if tile:
-        _check_tile_smem(lib, D, H // KV, P, R)
+    tensors = tuple(aligned(t) for t in tensors)
     out = torch.empty_like(q)
-    stream = _cuda.stream_ptr(q.device)
-    if tile:
-        err = lib.int_kv_decode_tile(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), B, H, KV, D, P,
-            R, int(int_dots), int(k_transposed), float(scale), stream)
-        _cuda.check(lib, err, "int_kv_decode_tile")
-        int_kv_decode_attention.tile_launches += 1
-        return out
-    ns = lib.int_kv_num_splits(P, R)
-    m_part = torch.empty((B, H, ns), dtype=torch.float32, device=q.device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, H, ns, D), dtype=torch.float32,
-                           device=q.device)
     err = lib.int_kv_decode(
-        *(t.data_ptr() for t in tensors), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(),
-        B, H, KV, D, P, R, bits, float(scale), stream)
+        *(t.data_ptr() for t in tensors), out.data_ptr(), B, H, KV, D, P, R,
+        form, float(scale), plan.splits, _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "int_kv_decode")
-    int_kv_decode_attention.launches += 1
+    if form in (0, 1):
+        int_kv_decode_attention.launches += 1
+    else:
+        int_kv_decode_attention.tile_launches += 1
     return out
 
 

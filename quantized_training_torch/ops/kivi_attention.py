@@ -42,6 +42,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _cuda, _decode_gemm
+from ._decode_attn import (MAX_SMEM, MAX_SPLITS, STEP, WARPS, aligned,
+                           cluster_splits, plan_tokens)
 
 __all__ = ["KERNEL_DG", "KiviPlan", "kivi_decode_attention",
            "kivi_decode_plain", "kivi_decode_plan", "kivi_launch_plan",
@@ -55,12 +57,6 @@ NEG_INF = -2.0 ** 30
 # divides P and any V group of a multiple of D/32 features (at most 32
 # groups).
 KERNEL_DG = tuple((d, g) for d in (64, 128) for g in (1, 2, 4, 8))
-
-WARPS = 4        # warps a block (csrc/decode_attn.cuh)
-STEP = 16        # tokens a warp step
-MAX_SPLITS = 8   # blocks a (batch, kv head) pair: one cluster
-MAX_SMEM = 227 * 1024
-
 
 def _unpack_planar(codes: torch.Tensor, bits: Optional[int]) -> torch.Tensor:
     """(..., Pw, D) packed int32 words -> (..., P, D) int32 centered codes
@@ -165,11 +161,8 @@ def kivi_decode_plan(B: int, KV: int, P: int, R: int, bits: Optional[int],
     rows = P // per
     unit = STEP // per
     main_steps, res_steps = -(-rows // unit), -(-R // STEP)
-    splits = 1
-    while (splits < MAX_SPLITS
-           and 2 * splits * max(1, B * KV) <= blocks_per_sm * sms
-           and 2 * splits * WARPS <= main_steps + res_steps):
-        splits *= 2
+    splits = cluster_splits(B * KV, main_steps + res_steps, sms,
+                            blocks_per_sm)
     return KiviPlan(splits, rows, unit, main_steps, res_steps)
 
 
@@ -197,23 +190,9 @@ def kivi_plan_tokens(plan: KiviPlan, R: int, bits: Optional[int]):
     """[[(main tokens, residual rows) of each warp] of each split], as the
     kernel reads them before it cuts them at main_len and res_len: every
     plane of a warp's word rows."""
-    per = 32 // bits if bits else 1
-    W = WARPS * plan.splits
-
-    def steps(w, n):
-        return w * n // W, (w + 1) * n // W
-
-    out = []
-    for s in range(plan.splits):
-        warps = []
-        for w in range(s * WARPS, (s + 1) * WARPS):
-            m0, m1 = steps(w, plan.main_steps)
-            q0, q1 = steps(w, plan.res_steps)
-            rows = range(m0 * plan.unit, min(m1 * plan.unit, plan.rows))
-            warps.append(([p * plan.rows + r for r in rows for p in range(per)],
-                          list(range(q0 * STEP, min(q1 * STEP, R)))))
-        out.append(warps)
-    return out
+    return plan_tokens(plan.splits, plan.rows, plan.unit,
+                       32 // bits if bits else 1, plan.main_steps,
+                       plan.res_steps, R)
 
 
 def _lib():
@@ -231,12 +210,6 @@ def _lib():
         lib.kivi_dequant_check.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.kivi_dequant_check.restype = ci
     return lib
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it where its data is not 16-byte aligned (the
-    kernel's 16-byte reads)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def kivi_decode_attention(
@@ -317,7 +290,7 @@ def kivi_decode_attention(
             f"kivi_decode_attention kernel: P={P} R={R} at G={H // KV} needs "
             f"{smem} bytes of shared memory a block for its scores (at most "
             f"{MAX_SMEM})")
-    tensors = tuple(_aligned(t) for t in tensors)
+    tensors = tuple(aligned(t) for t in tensors)
     out = torch.empty_like(q)
     err = lib.kivi_decode(
         *(t.data_ptr() for t in tensors), out.data_ptr(), B, H, KV, D, P, R,

@@ -683,10 +683,10 @@ def test_w8a8_integer_dot_exact_on_cuda(cuda_device):
                          [(True, True), (True, False), (False, True)])
 def test_int_kv_tile_forms_launch_and_match_plain(cuda_device, int_dots,
                                                   k_transposed):
-    """The int8 decode's integer-dot and K^T forms launch the whole-tile
-    kernel and agree with the plain version within chip_smoke.py's bounds
-    (max error 2e-3, at most 0.5% of outputs outside 1e-4 + 1e-3|plain|),
-    at the kernel's geometry (D=128, H=KV) with a short main tier."""
+    """The int8 decode's integer-dot and K^T forms launch kernel 7 (counted
+    in ``tile_launches``) and agree with the plain version within
+    chip_smoke.py's bounds (max error 2e-3, at most 0.5% of outputs outside
+    1e-4 + 1e-3|plain|), at D=128, H=KV with a short main tier."""
     from quantized_training_torch.ops import int_kv_attention as ikv
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     B, H, D, P, R = 2, 4, 128, 256, 16
@@ -788,12 +788,10 @@ def _int_sym_case(gen, D, G, bits, P=512, R=16, B=2, KV=2):
                                  for g in (1, 2, 4, 8)])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_int_kv_split_gqa_forms(cuda_device, D, G, bits):
-    """The split kernel (bf16 dots over untransposed codes) at every
-    instantiated (D, G): one launch, within the MHA forms' bounds of its
-    plain version (2e-3 at int4, 4e-3 at int8, + 2e-2*|plain|; no slot
-    here holds the single main token where chip_smoke.py allows a
-    rounding floor), and far outside them from a kernel whose head h
-    reads kv head h % KV."""
+    """Kernel 7's bf16-dot forms over untransposed codes at every
+    instantiated (D, G): one launch, within 2e-3 (int4) or 4e-3 (int8) +
+    2e-2*|plain| of its plain version, and far outside it from a kernel
+    whose head h reads kv head h % KV."""
     from quantized_training_torch.ops import int_kv_attention as ikv
     gen = torch.Generator(device=cuda_device).manual_seed(10 * G + D + bits)
     cache, res, lens = _int_sym_case(gen, D, G, bits)
@@ -818,9 +816,9 @@ def test_int_kv_split_gqa_forms(cuda_device, D, G, bits):
 @pytest.mark.parametrize("int_dots,k_transposed",
                          [(True, True), (True, False), (False, True)])
 def test_int_kv_tile_gqa_forms(cuda_device, D, G, int_dots, k_transposed):
-    """The whole-tile kernel at every instantiated (D, G) and form: one
-    launch, within chip_smoke.py's bounds (max error 2e-3, at most 0.5% of
-    outputs outside 1e-4 + 1e-3|plain|), and far outside them from a
+    """Kernel 7's integer-dot and K^T forms at every instantiated (D, G):
+    one launch, within chip_smoke.py's bounds (max error 2e-3, at most 0.5%
+    of outputs outside 1e-4 + 1e-3|plain|), and far outside them from a
     kernel whose head h reads kv head h % KV."""
     from quantized_training_torch.ops import int_kv_attention as ikv
     gen = torch.Generator(device=cuda_device).manual_seed(10 * G + D)
@@ -848,6 +846,82 @@ def test_int_kv_tile_gqa_forms(cuda_device, D, G, int_dots, k_transposed):
         assert outside(_head_map_fault(ikv.int_kv_decode_plain, q, *args,
                                        G=G, KV=2, scale=D ** -0.5,
                                        **form))[1] > 0.05
+
+
+# kernel 7's forms: (bits, int_dots, k_transposed)
+INT_KV_FORMS = {"int4": (4, False, False), "int8": (8, False, False),
+                "int8_kt": (8, False, True), "int8_int_dots": (8, True, False),
+                "int8_int_dots_kt": (8, True, True)}
+
+
+def _int_kv_within(got, want):
+    """chip_smoke.py's INT_KV_* bounds: max error 2e-3, at most 0.5% of the
+    outputs outside 1e-4 + 1e-3|plain|."""
+    err = (got.float() - want.float()).abs()
+    share = float((err > 1e-4 + 1e-3 * want.float().abs()).float().mean())
+    return bool(got.float().isfinite().all()) and float(err.max()) <= 2e-3 \
+        and share <= 0.005
+
+
+@pytest.mark.parametrize("D,G", [(d, g) for d in (64, 128)
+                                 for g in (1, 2, 4, 8)])
+@pytest.mark.parametrize("form", list(INT_KV_FORMS))
+def test_int_kv_every_form_and_length(cuda_device, D, G, form):
+    """Kernel 7 in every form at every instantiated (D, G), against its
+    plain version within chip_smoke.py's bounds, at res_len 0, 1 and R with
+    mixed main lengths (1 and P among them, a word row's edge at int4): one
+    launch a call, counted in ``launches`` (bf16 dots over untransposed
+    codes) or ``tile_launches`` (the others), the same bits from a repeated
+    call, and the library's shared memory equal to the plan's formula."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    bits, int_dots, kt = INT_KV_FORMS[form]
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * G + D + bits)
+    B, KV, P, R = 4, 2, 512, 32
+    cache, res, _ = _int_sym_case(gen, D, G, bits, P=P, R=R, B=B, KV=KV)
+    kc = cache.k_codes.transpose(2, 3).contiguous() if kt else cache.k_codes
+    q = _rnd(gen, B, KV * G, D)
+    args = (q, kc, cache.k_scale, cache.v_codes, cache.v_scale, *res)
+    kw = dict(bits=bits, int_dots=int_dots, k_transposed=kt)
+    fn = ikv.int_kv_decode_attention
+    counter = "tile_launches" if int_dots or kt else "launches"
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    for rl_val in (0, 1, R):
+        ml = torch.tensor([1, P, 300, 257], **i32)
+        rl = torch.full((B,), rl_val, **i32)
+        before = getattr(fn, counter)
+        got = fn(*args, ml, rl, **kw)
+        torch.cuda.synchronize()
+        assert getattr(fn, counter) == before + 1
+        want = ikv.int_kv_decode_plain(*args, ml, rl, scale=D ** -0.5, **kw)
+        assert _int_kv_within(got, want), (form, rl_val)
+        assert torch.equal(got.view(torch.int16),
+                           fn(*args, ml, rl, **kw).view(torch.int16))
+    fid = ikv._form(bits, int_dots, kt)
+    for splits in (1, 2, 8):
+        assert ikv._lib().int_kv_decode_smem(B, KV * G, KV, D, P, R, fid,
+                                             splits) == \
+            ikv.int_kv_decode_smem(fid, D, G, P, R, splits)
+
+
+@pytest.mark.parametrize("form", ["int8_int_dots_kt", "int4"])
+def test_int_kv_past_the_old_whole_tile_limit(cuda_device, form):
+    """G = 8, D = 128, P + R = 8320: beyond the 6079 the whole-tile kernel
+    kept in one block's shared memory, now split over a cluster, within
+    chip_smoke.py's bounds."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    bits, int_dots, kt = INT_KV_FORMS[form]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    B, KV, G, D, P, R = 1, 2, 8, 128, 8192, 128
+    cache, res, _ = _int_sym_case(gen, D, G, bits, P=P, R=R, B=B, KV=KV)
+    kc = cache.k_codes.transpose(2, 3).contiguous() if kt else cache.k_codes
+    args = (_rnd(gen, B, KV * G, D), kc, cache.k_scale, cache.v_codes,
+            cache.v_scale, *res)
+    lens = (torch.tensor([P - 3], dtype=torch.int32, device=cuda_device),
+            torch.tensor([R], dtype=torch.int32, device=cuda_device))
+    kw = dict(bits=bits, int_dots=int_dots, k_transposed=kt)
+    got = ikv.int_kv_decode_attention(*args, *lens, **kw)
+    want = ikv.int_kv_decode_plain(*args, *lens, scale=D ** -0.5, **kw)
+    assert _int_kv_within(got, want)
 
 
 @pytest.mark.parametrize("D,G", [(d, g) for d in (64, 128)
@@ -888,13 +962,13 @@ def test_kivi_decode_gqa_forms(cuda_device, D, G, bits):
 
 def test_decode_kernels_refuse_uninstantiated_forms(cuda_device):
     """A (D, G) no kernel is built for raises before any launch, as does a
-    whole-tile shape whose scores exceed one block's shared memory; none
-    falls back to a plain version."""
+    cache whose scores exceed a block's shared memory at 8 blocks a pair
+    (P = 65536 at G = 8, D = 128); none falls back to a plain version."""
     from quantized_training_torch.ops import int_kv_attention as ikv
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     B, KV, R = 1, 2, 8
     for D, G, P in ((96, 1, 64), (128, 3, 64), (128, 16, 64),
-                    (128, 8, 8192)):
+                    (128, 8, 65536)):
         cfg = kvc.KVCacheConfig.int_sym(P, R, 8)
         c = kvc.init_cache(cfg, B, KV, D, device=cuda_device)
         lens = torch.ones((B,), dtype=torch.int32, device=cuda_device)
@@ -904,7 +978,7 @@ def test_decode_kernels_refuse_uninstantiated_forms(cuda_device):
             ikv.int_kv_decode_attention(q, kT, c.k_scale, c.v_codes,
                                         c.v_scale, c.k_res.bfloat16(),
                                         c.v_res.bfloat16(), lens, lens)
-        if P == 8192:
+        if P == 65536:
             continue
         spec = "uint2,qs=group_wise_affine,bs=32,ax={}"
         kcfg = kvc.KVCacheConfig.kivi(P, R, spec.format(-2), spec.format(-1),

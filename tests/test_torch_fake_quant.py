@@ -27,6 +27,14 @@ from quantized_training_torch.ops.softmax import posit_softmax
 from quantized_training_torch.qspec import QuantizationSpec
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _x(shape, seed, scale=3.0):
     x = (np.random.default_rng(seed).standard_normal(shape) * scale).astype(
         np.float32)
@@ -212,15 +220,16 @@ def test_quantized_matmul_plain_matches_jax():
     rng = np.random.default_rng(7)
     x = rng.standard_normal((64, 128)).astype(np.float32)
     w = rng.standard_normal((128, 32)).astype(np.float32)
-    want = jax_qmm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
-                   x_qfn=jax_qfn("posit8_1"))
+    # jitted: the eager references' bits, in a tenth of their time
+    want = jax.jit(lambda a, b: jax_qmm(a, b, x_qfn=jax_qfn("posit8_1")))(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
     got = quantized_matmul(torch.from_numpy(x).bfloat16(),
                            torch.from_numpy(w).bfloat16(),
                            x_qfn=quantize_fn("posit8_1"))
     _eq(got, want)
     p8j, p8t = jax_qfn("posit8_1"), quantize_fn("posit8_1")
-    gx = jax.grad(lambda a: jnp.sum(jax_qmm(a, jnp.asarray(w), x_qfn=p8j,
-                                            w_qfn=p8j)))(jnp.asarray(x[:16, :]))
+    gx = jax.jit(jax.grad(lambda a: jnp.sum(jax_qmm(
+        a, jnp.asarray(w), x_qfn=p8j, w_qfn=p8j))))(jnp.asarray(x[:16, :]))
     t = torch.from_numpy(x[:16].copy()).requires_grad_(True)
     quantized_matmul(t, torch.from_numpy(w), x_qfn=p8t, w_qfn=p8t).sum().backward()
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(gx), rtol=1e-5,

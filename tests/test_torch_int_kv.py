@@ -21,6 +21,14 @@ from quantized_training_torch.serving import kv_cache as tkv
 B, P, R, KV, D = 3, 32, 8, 2, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _kv(S, seed, n=B):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((n, S, KV, D)).astype(np.float32)

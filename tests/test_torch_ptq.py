@@ -142,8 +142,10 @@ def llama_weights():
 def test_preset_logits_match_jax(preset, llama_weights):
     jparams, tparams = llama_weights
     ids = np.random.default_rng(1).integers(0, ARCH["vocab_size"], (1, 64))
-    want = np.asarray(JaxLlama(JaxLlamaConfig(**ARCH), jax_build_preset(
-        preset)).apply({"params": jparams}, jnp.asarray(ids, jnp.int32)))
+    # jitted: the eager forward's bits under every preset, in less time
+    want = np.asarray(jax.jit(JaxLlama(JaxLlamaConfig(**ARCH),
+                                       jax_build_preset(preset)).apply)(
+        {"params": jparams}, jnp.asarray(ids, jnp.int32)))
     model = qt.LlamaForCausalLM(qt.LlamaConfig(**ARCH), build_preset(preset),
                                 device="cpu")
     model.load_state_dict(tparams)

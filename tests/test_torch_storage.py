@@ -23,6 +23,15 @@ from quantized_training_torch.ops import affine_storage as port_affine
 from quantized_training_torch.qspec import QuantizationSpec
 from quantized_training_torch.quantize import build_storage, fake_quantize
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GROUP = 64
 
 

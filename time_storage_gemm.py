@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time the storage GEMMs and the KIVI decode of one or more checkouts of
-the port on one NVIDIA GPU, so that two versions of a kernel are compared
-within one run: kernel 5 (the w4/w2 GEMM, ``csrc/affine_w4_matmul.cu``) at
-its prefill shapes and at its decode shapes (M = 8 and 1 at LLaMA-2 7B's,
-Phi-3-medium's qkv and down, the w2 format's 13B qkv), kernels 9 and 10
-(the MX8 and posit8 GEMMs, ``csrc/mx_storage_matmul.cu`` and
-``csrc/posit_storage_matmul.cu``) at LLaMA-2 7B's decode shapes and at
-M > 8 (its qkv and down at a 2048-token prefill, its qkv at one slot's
-128-token prompt), and kernel 8 (the KIVI decode, ``csrc/kivi_decode.cu``)
-at the 7B's decode shape (8 full slots, P = 2048, R = 128) in each cache
-form (packed uint2 and uint4, uint8 codes) and at Phi-3-medium's in packed
-uint2:
+"""Time the storage GEMMs and the decode attentions of one or more
+checkouts of the port on one NVIDIA GPU, so that two versions of a kernel
+are compared within one run: kernel 5 (the w4/w2 GEMM,
+``csrc/affine_w4_matmul.cu``) at its prefill shapes and at its decode
+shapes (M = 8 and 1 at LLaMA-2 7B's, Phi-3-medium's qkv and down, the w2
+format's 13B qkv), kernels 9 and 10 (the MX8 and posit8 GEMMs,
+``csrc/mx_storage_matmul.cu`` and ``csrc/posit_storage_matmul.cu``) at
+LLaMA-2 7B's decode shapes and at M > 8 (its qkv and down at a 2048-token
+prefill, its qkv at one slot's 128-token prompt), kernel 8 (the KIVI
+decode, ``csrc/kivi_decode.cu``) at the 7B's decode shape (8 full slots, P
+= 2048, R = 128) in each cache form (packed uint2 and uint4, uint8 codes)
+and at Phi-3-medium's in packed uint2, and kernel 7 (the int-sym decode,
+``csrc/int_kv_decode.cu``) in int4 and int8 at the 7B's and Phi-3's decode
+shapes and in its integer-dot and K^T forms at the 7B's:
 
     python3 time_storage_gemm.py [--steps-only | --match TEXT] ROOT [ROOT ...]
 
@@ -20,10 +22,10 @@ in a process of its own (name one twice to time it twice, as in A B B A).
 A process builds its checkout's kernels into that checkout's ``_build/``,
 checks one call at each shape against the plain version (the GEMMs within
 1e-4 + 1e-2*|plain|, kernel 8 within chip_smoke.py's KIVI_TOL bounds for its
-form) and times it with chip_smoke.py's ``Timer`` (median of 15 calls, L2
-flushed); it also reads the host's cost of a call, the mean over 200 calls
-queued back to back without a wait (the card runs behind, so the host sets
-that pace).  Every weight is seeded, group or MX block 64, posit8 es 1.
+form, kernel 7 within its INT_KV_* bounds) and times it with chip_smoke.py's
+``Timer`` (median of 15 calls, L2 flushed); it also reads the host's cost
+of a call, the mean over 200 calls queued back to back without a wait (the
+card runs behind, so the host sets that pace).  Every weight is seeded, group or MX block 64, posit8 es 1.
 Then it serves its arms, each labelled ``step ...``: chip_smoke.py's
 posit8_kv4 and mx8_kv4 format arms (2 layers at 7B width) and its 32-layer
 7B w4a16 model with the int4 cache (the serving phase's), each with 8
@@ -38,10 +40,13 @@ device's busy time, its idle share and the storage GEMMs' device time;
 and the 32-layer 7B w4a16 model with the packed uint2 KIVI cache (the
 flagship), its 8 slots prefilled with 2048 tokens each (one untimed
 prefill), whose traced decode step also reports kernel 8's device time
-(kernels named ``kivi``).  ``--steps-only`` serves the arms and times no
-shape, for many alternating runs (P A P A ...) in one call; ``--match
-TEXT`` times only the shapes and serves only the arms whose label holds
-TEXT (``kivi`` takes kernel 8's shapes and the KIVI step).  Prints a line
+(kernels named ``kivi``), and the same 32-layer model with the int4 cache
+at 2048-token prompts, whose traced step reports kernel 7's (kernels named
+``int_kv``).  ``--steps-only`` serves the arms and times no shape, for many
+alternating runs (P A P A ...) in one call; ``--match TEXT`` times only the
+shapes and serves only the arms whose label holds TEXT (``kivi`` takes
+kernel 8's shapes and the KIVI step, ``int_kv`` kernel 7's and the int4
+step at 2048-token prompts).  Prints a line
 per checkout and shape or arm, then the card's name and power limit and
 one JSON object with every reading; exits non-zero if a check fails or
 CUDA is not available.
@@ -98,13 +103,29 @@ KIVI_SHAPES = [("kivi 7B uint2", 8, 32, 32, 128, 2048, 128, 2, True),
                ("kivi 7B uint8", 8, 32, 32, 128, 2048, 128, 2, False),
                ("kivi Phi-3 uint2", 8, 40, 10, 128, 2048, 128, 2, True)]
 
+# (label, B, H, KV, D, P, R, bits, int_dots, k_transposed): kernel 7 at
+# every slot full, its served int4 form and int8 at the 7B and Phi-3 decode
+# shapes, the integer-dot and K^T forms at the 7B's
+INT_KV_SHAPES = [
+    ("int_kv 7B int4", 8, 32, 32, 128, 2048, 128, 4, False, False),
+    ("int_kv 7B int8", 8, 32, 32, 128, 2048, 128, 8, False, False),
+    ("int_kv Phi-3 int4", 8, 40, 10, 128, 2048, 128, 4, False, False),
+    ("int_kv Phi-3 int8", 8, 40, 10, 128, 2048, 128, 8, False, False),
+    ("int_kv 7B int8 K^T", 8, 32, 32, 128, 2048, 128, 8, False, True),
+    ("int_kv 7B int8 integer dots", 8, 32, 32, 128, 2048, 128, 8, True,
+     False),
+    ("int_kv 7B int8 integer dots K^T", 8, 32, 32, 128, 2048, 128, 8, True,
+     True)]
+
 # (label, storage format, layers, cache, prompt tokens a slot, watched
 # kernel names): the served arms
 ARMS = [("step posit8_kv4", "posit8", 2, "int4", 128, ("bsg::",)),
         ("step mx8_kv4", "mx8", 2, "int4", 128, ("bsg::",)),
         ("step w4a16_kv4", "w4a16", 32, "int4", 128, ("w4_gemm",)),
         ("step w4a16_kivi2", "w4a16", 32, "kivi2", 2048,
-         ("w4_gemm", "kivi"))]
+         ("w4_gemm", "kivi")),
+        ("step w4a16_kv4 int_kv", "w4a16", 32, "int4", 2048,
+         ("w4_gemm", "int_kv"))]
 
 
 def kivi_row(torch, smoke, timer, gen, label, B, H, KV, D, P, R, bits,
@@ -139,6 +160,40 @@ def kivi_row(torch, smoke, timer, gen, label, B, H, KV, D, P, R, bits,
     return dict(shape=label, format=f"kivi uint{bits} "
                 f"{'packed' if pack else 'bytes'}", M=B, K=P, N=H, ok=ok,
                 ms=ms, host_us=host_us)
+
+
+def int_kv_row(torch, smoke, timer, gen, label, B, H, KV, D, P, R, bits,
+               int_dots, kt):
+    """Kernel 7 at one shape and form, every slot full: checked against its
+    plain version within chip_smoke.py's INT_KV_* bounds, timed."""
+    from quantized_training_torch.ops import int_kv_attention as ikv
+    from quantized_training_torch.serving import kv_cache as kvc
+    bf16 = torch.bfloat16
+    cfg = kvc.KVCacheConfig.int_sym(P, R, bits)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    cache = kvc.prefill_cache(kvc.init_cache(cfg, B, KV, D, device="cuda"),
+                              cfg, rnd(B, P, KV, D), rnd(B, P, KV, D))
+    kc = cache.k_codes.transpose(2, 3).contiguous() if kt else cache.k_codes
+    full = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    args = (rnd(B, H, D), kc, cache.k_scale, cache.v_codes, cache.v_scale,
+            rnd(B, KV, R, D), rnd(B, KV, R, D), full, full * 0 + R)
+    kw = dict(bits=bits, int_dots=int_dots, k_transposed=kt)
+    ok, _ = smoke.int_kv_reading(
+        label, ikv.int_kv_decode_attention(*args, **kw),
+        ikv.int_kv_decode_plain(*args, scale=D ** -0.5, **kw))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        ikv.int_kv_decode_attention(*args, **kw)
+    host_us = (time.perf_counter() - t) / 200 * 1e6
+    torch.cuda.synchronize()
+    ms = timer(lambda: ikv.int_kv_decode_attention(*args, **kw))
+    return dict(shape=label, format=f"int_kv int{bits} int_dots={int_dots} "
+                f"k_transposed={kt}", M=B, K=P, N=H, ok=ok, ms=ms,
+                host_us=host_us)
 
 
 def gemm(fmt, w):
@@ -200,6 +255,9 @@ def time_one(root, steps_only=False, match=None):
     for label, *shape in [] if steps_only else KIVI_SHAPES:
         if match is None or match in label:
             rows.append(kivi_row(torch, smoke, timer, gen, label, *shape))
+    for label, *shape in [] if steps_only else INT_KV_SHAPES:
+        if match is None or match in label:
+            rows.append(int_kv_row(torch, smoke, timer, gen, label, *shape))
     steps = [decode_step(torch, smoke, *arm[1:])
              for arm in ARMS if match is None or match in arm[0]]
     print(json.dumps({"root": root, "rows": rows, "decode_steps": steps}),
@@ -209,10 +267,11 @@ def time_one(root, steps_only=False, match=None):
 def decode_step(torch, smoke, fmt, layers, cache, S, watch, B=8, steps=20):
     """chip_smoke.py's LLaMA-2 7B-width model in storage format ``fmt`` at
     ``layers`` layers with ``cache`` (int4, or kivi2: packed uint2 KIVI):
-    prefills of B slots of S tokens (with int4 5 timed and one traced;
-    with kivi2 one, untimed), then ``steps`` timed decode steps (wall and
-    host time), one more traced; the watched kernels are those whose names
-    hold each string of ``watch`` (the first: the storage GEMMs)."""
+    prefills of B slots of S tokens (of 128-token prompts 5 timed and one
+    traced; of longer ones one, untimed), then ``steps`` timed decode steps
+    (wall and host time), one more traced; the watched kernels are those
+    whose names hold each string of ``watch`` (the first: the storage
+    GEMMs; a second: the decode attention, kernel 8 or 7)."""
     import quantized_training_torch as qt
     cfg, qc = smoke.serving_config(qt, layers, fmt, cache)
     model = qt.LlamaForCausalLM(cfg, qc, device="cuda")
@@ -226,7 +285,7 @@ def decode_step(torch, smoke, fmt, layers, cache, S, watch, B=8, steps=20):
                          last_logit_only=True)
 
     walls = []
-    for _ in range(6 if cache == "int4" else 1):
+    for _ in range(6 if S == 128 else 1):
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits, caches = prefill()
@@ -264,7 +323,8 @@ def decode_step(torch, smoke, fmt, layers, cache, S, watch, B=8, steps=20):
            "busy_ms": prof.get("busy_ms"),
            "idle_share": prof.get("idle_share"),
            "storage_gemm_ms": prof.get("watched_ms", {}).get(watch[0]),
-           "kivi_decode_ms": prof.get("watched_ms", {}).get("kivi")}
+           "decode_attention_ms": prof.get("watched_ms", {}).get(
+               watch[-1]) if len(watch) > 1 else None}
     del model, caches, logits
     torch.cuda.empty_cache()
     return out
@@ -311,8 +371,8 @@ def main(roots, steps_only=False, match=None):
                   f"{d['decode_ms_per_step']:.3f} ms wall, host "
                   f"{d['host_ms_per_step']:.3f} ms, busy "
                   f"{d['busy_ms']} ms, idle share {d['idle_share']}, "
-                  f"storage GEMMs {d['storage_gemm_ms']} ms, KIVI decode "
-                  f"{d['kivi_decode_ms']} ms", flush=True)
+                  f"storage GEMMs {d['storage_gemm_ms']} ms, decode "
+                  f"attention {d['decode_attention_ms']} ms", flush=True)
     print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
     print(json.dumps({"storage_gemm_times": runs}))
     return 0 if ok else 1
