@@ -225,6 +225,24 @@ planted faults placed by the kernel's own plan (``int_kv_launch_plan``):
 the first block's partial left out of the merge, and the pair's max taken
 from the first block alone; every kernel 7 row has ``stream_ms``.
 
+Slice 16 redesigns kernels 14 (the packed 8-bit Adam step,
+csrc/adam8bit_step.cu:adam8bit_packed_kernel: one warp a word row) and 11
+(the rounding, csrc/quantize_elemwise.cu: a 2^16-entry table a format for
+bf16 tensors, the arithmetic with the format's kind fixed per
+instantiation otherwise) to stream at the bytes' rate: phase 1 prints the
+instruction mix of both (SASS) and fails on a spill in their functions;
+phase 2/3 holds kernel 14 bit for bit at the train step's leaves (nb
+16384, 44032, 256000), BERT's MLP kernel (9216) and a leaf of zeros, with
+three more planted faults (a word row skipped, a plane skipped, each row's
+m scale taken from the next row), and times it at each train-step nb
+(each row counts the train step's launches at its nb); kernel 11's table
+and arithmetic forms bit for bit over every bf16 pattern (each format's
+table built once in a phase: a check), a planted fault (one table entry
+flipped), and rows for a PTQ window's (1024, 4096) activation and an f32
+tensor, beside a copy of the same bytes (``stream_ms``); the train, BERT
+and PTQ phases print kernels 14 and 11 summed over their traced step or
+window beside the summed bound (the ``path_sums`` line).
+
 The last two lines of output are the kernel table as one JSON object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -314,7 +332,7 @@ class Timer:
         cycles = int(self.cycles_per_ms * min(2 * host_ms + 0.05, 50.0))
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.clear_l2()
             if spin:
                 torch.cuda._sleep(cycles)
             start = torch.cuda.Event(enable_timing=True)
@@ -326,6 +344,11 @@ class Timer:
         torch.cuda.synchronize()
         times = sorted(s.elapsed_time(e) for s, e in pairs)
         return times[len(times) // 2]
+
+    def clear_l2(self):
+        """The flush before each launch: the 256 MB buffer zeroed, which
+        leaves the L2 full of its dirty lines."""
+        self.flush.zero_()
 
 
 def fresh_peak(torch):
@@ -832,6 +855,146 @@ def kernel_phases(torch, timer):
     return rows
 
 
+def sass_mix(sass, only):
+    """{function: instruction counts} of the functions of a library's SASS
+    (``_cuda.sass``) whose names hold ``only``: the total and the slow or
+    narrow-pipe kinds (MUFU, FCHK, CALL, conversions, shared-memory loads)."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split("\n", 1)[0].strip()
+        if only not in fn:
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0]
+               for i in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)
+               if i.strip()]
+        out[fn] = {"total": len(ops), **{
+            k: ops.count(k) for k in ("MUFU", "FCHK", "CALL", "I2F", "F2I",
+                                      "FRND", "F2F", "LDS")}}
+    return out
+
+
+def packed_adam_bytes(nb):
+    """Kernel 14's bytes for a leaf of nb rows: g 4, the m and v codes 1
+    each, the update 4 and the new codes 1 each an element; of each of the
+    two (nb/64, 256) f32 scale arrays, every row's scale read (4 bytes a
+    row) and the whole array written, zero pad rows included (16 bytes a
+    row)."""
+    return nb * 256 * 12 + 2 * (4 + 16) * nb
+
+
+# kernel names (as the profiler shows them) of kernels 14 and 11
+K14_NAMES = ("adam8bit_packed",)
+K11_NAMES = ("round_table", "round_arith", "qt_table_build")
+# {path: {kernel: launches, device ms and summed bound}}: kernels 14 and 11
+# over each traced step or window, printed as ``path_sums``
+PATH_SUMS = {}
+
+
+def path_sum(path, prof, shapes):
+    """Kernels 14 and 11 summed over one traced step or window of ``path``:
+    their device time in ``prof`` (``profile`` watching K14_NAMES and
+    K11_NAMES) beside the sum of each launch's bound, from ``shapes`` (the
+    launches by shape of the same work, ``shape_launch_counts``)."""
+    if not prof:
+        return
+    sums = {}
+    for kernel, names, nbytes in (
+            ("adam8bit_packed", K14_NAMES, packed_adam_bytes),
+            ("quantize_elemwise", K11_NAMES, lambda s: 2 * s[0] * s[1])):
+        tally = shapes.get(kernel, {})
+        if not tally:
+            continue
+        ms = sum(prof["watched_ms"].get(n, 0.0) for n in names)
+        bound = sum(n * bound_ms(nbytes(shape), 0)[0]
+                    for shape, n in tally.items())
+        sums[kernel] = {"launches": sum(tally.values()), "ms": ms,
+                        "bound_ms": bound}
+        log(f"    {kernel} over the {path}: {ms:.3f} ms device time in "
+            f"{sums[kernel]['launches']} launches, summed bound "
+            f"{bound:.3f} ms (bytes)")
+    PATH_SUMS[path] = sums
+
+
+def packed_faults(torch, ad, g2d, state, msf, want, plain):
+    """Plain outputs of three faulty packed 8-bit Adam steps from ``want``
+    (the plain outputs) or ``plain(*state)``: word row 37 of tile 1 left
+    unwritten (zeros), plane 2 of every word row left unwritten, and each
+    row's m dequantized with the next row's scale."""
+    nb = g2d.shape[0]
+    out = {}
+    upd, mw, ms, vw, vs = (t.clone() for t in want)
+    rows = [512 + p * 128 + 37 for p in range(4)]
+    upd[rows] = 0
+    mw[128 + 37] = 0
+    vw[128 + 37] = 0
+    for s in (ms, vs):
+        s.view(-1)[[8 * 256 + r - 512 for r in rows]] = 0
+    out["word row 37 of tile 1 skipped"] = (upd, mw, ms, vw, vs)
+    upd, mw, ms, vw, vs = (t.clone() for t in want)
+    tiles = torch.arange(nb // 512, device=g2d.device)
+    plane2 = (tiles[:, None] * 512 + 256 + torch.arange(
+        128, device=g2d.device)).reshape(-1)
+    upd[plane2] = 0
+    mw &= ~0x00FF0000
+    vw &= ~0x00FF0000
+    for s in (ms, vs):
+        s.view(nb // 512, 8, 256)[:, 1, :128] = 0   # rows 256..383 of a slab
+    out["plane 2 of every word row skipped"] = (upd, mw, ms, vw, vs)
+    out["each row's m scale taken from the next row"] = plain(
+        state[0], ad.pack_scale_rows(torch.roll(msf, -1)), *state[2:])
+    return out
+
+
+def packed_edge_state(torch, nb, gen):
+    """A packed leaf's g and state (g, m codes, m scales, v codes, v
+    scales; the codes and scales unpacked) spread over f32's range: each
+    row's magnitudes near an exponent of its own, with zero rows, zero
+    elements and rows of zero state (tests/test_torch_optim8bit.py's
+    ``_edge_state``, drawn on the card)."""
+    dev = gen.device
+
+    def exps(shape, lo, hi):
+        return torch.exp2(torch.randint(lo, hi, shape, generator=gen,
+                                        device=dev).float())
+
+    g = torch.randn((nb, 256), generator=gen, device=dev) * exps(
+        (nb, 1), -75, 53) * exps((nb, 256), -6, 7)
+    g[::5] = 0.0
+    g[torch.rand((nb, 256), generator=gen, device=dev) < 0.05] = 0.0
+    mc = torch.randint(-127, 128, (nb, 256), generator=gen, device=dev,
+                       dtype=torch.int32)
+    vc = torch.randint(0, 256, (nb, 256), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ms = torch.rand(nb, generator=gen, device=dev) * exps((nb,), -75, 53)
+    vs = torch.rand(nb, generator=gen, device=dev) * exps((nb,), -60, 41)
+    mc[::7] = 0
+    vc[::7] = 0
+    ms[::7] = 1.0
+    vs[::7] = 1.0
+    return g, mc, ms, vc, vs
+
+
+def packed_edge_reach(torch, g, mc, ms, vc, vs, b1=0.9, b2=0.999):
+    """How many elements (rows) of a leaf lie in each range where kernel
+    14 leaves its fast paths, its m and v computed as the update does."""
+    f32 = torch.float32
+    m = torch.tensor(b1, dtype=f32) * (mc.float() * ms[:, None]) \
+        + torch.tensor(1.0 - b1, dtype=f32) * g
+    root = vc.float() * vs[:, None]
+    v = torch.tensor(b2, dtype=f32) * (root * root) \
+        + torch.tensor(1.0 - b2, dtype=f32) * (g * g)
+    am = m.abs()
+    rm, rv = am.amax(1), v.amax(1)
+    return {k: int(t.sum()) for k, t in (
+        ("|m| in (0, 2^-40)", (am > 0) & (am < 2.0 ** -40)),
+        ("|m| > 2^40", am > 2.0 ** 40),
+        ("v in (0, 2^-80)", (v > 0) & (v < 2.0 ** -80)),
+        ("v > 2^80", v > 2.0 ** 80),
+        ("rows max |m| > 2^50", rm > 2.0 ** 50),
+        ("rows max |m| in (0, 2^-50)", (rm > 0) & (rm < 2.0 ** -50)),
+        ("rows max v > 2^50", rv > 2.0 ** 50))}
+
+
 def bit_mismatches(got, want):
     """Lanes whose bits differ, NaN lanes counting as equal to each other:
     (count, first few flat indices)."""
@@ -915,8 +1078,12 @@ def rounding_kernel_phases(torch, timer):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     # ---- elementwise rounding: exact --------------------------------------
+    # bf16 inputs in both forms (the table, and the arithmetic that small
+    # tensors take); each format's table is built once in this phase
     log("phase 2/3: quantize_elemwise (bit-equal to the plain version; "
         "NaN lanes compared as NaN)")
+    qe.clear_tables()
+    builds = qe.quantize_elemwise.table_builds
     universe = torch.arange(2 ** 16, dtype=torch.int32, device=dev).to(
         torch.int16).view(bf16)
     f32_bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 20,),
@@ -924,21 +1091,48 @@ def rounding_kernel_phases(torch, timer):
     cases = [("all bf16", universe), ("all bf16 but the first (unaligned, "
                                       "ragged)", universe[1:]),
              ("2^20 random f32 patterns", f32_bits.view(torch.float32))]
-    for dtype in ("posit8_1", "posit16_1", "e4m3", "e5m2", "fp6_e3m2",
-                  "int8"):
+    formats = ("posit8_1", "posit16_1", "e4m3", "e5m2", "fp6_e3m2", "int8")
+    for dtype in formats:
         qfn = quantize_fn(dtype)
         for name, x in cases:
-            got = qe.quantize_elemwise(x, qfn.fmt)
             want = qe.quantize_elemwise_plain(x, qfn)
-            torch.cuda.synchronize()
-            n_bad, first = bit_mismatches(got, want)
             cpu_bad, _ = bit_mismatches(want.cpu(),
                                         qe.quantize_elemwise_plain(x.cpu(), qfn))
-            log(f"  {dtype}, {name}: {n_bad} lanes differ from the plain "
-                f"version{f' (first {first})' if n_bad else ''}; the plain "
-                f"version on the card differs from the CPU's in {cpu_bad}")
-            if n_bad:
-                failures.append(f"quantize_elemwise {dtype} {name}")
+            for form in (("table", "arith") if x.dtype == bf16
+                         else ("arith",)):
+                got = qe._quantize_elemwise(x, qfn.fmt, form)
+                torch.cuda.synchronize()
+                n_bad, first = bit_mismatches(got, want)
+                log(f"  {dtype}, {name}, {form} form: {n_bad} lanes differ "
+                    f"from the plain version"
+                    f"{f' (first {first})' if n_bad else ''}; the plain "
+                    f"version on the card differs from the CPU's in "
+                    f"{cpu_bad}")
+                if n_bad:
+                    failures.append(f"quantize_elemwise {dtype} {name} "
+                                    f"{form}")
+    # planted fault: one entry of posit8_1's table flipped, the entry of
+    # the most frequent pattern of a 7B-like weight
+    w = (torch.randn((4096, 1024), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 11)) * 0.02).to(bf16)
+    p8 = quantize_fn("posit8_1")
+    table = qe._TABLES[(torch.cuda.current_device(), qe.table_key(p8.fmt))]
+    idx = torch.bincount(w.view(torch.int16).long().flatten() & 0xFFFF,
+                         minlength=1 << 16).argmax()
+    faulted = table.clone()
+    faulted[idx] ^= 1
+    got = qe._quantize_elemwise(w, p8.fmt, "table")
+    n_bad, _ = bit_mismatches(
+        got, faulted[w.view(torch.int16).long() & 0xFFFF].view(bf16))
+    log(f"  planted fault, posit8_1's table entry {int(idx):#06x} flipped in "
+        f"its last bit: {n_bad} lanes differ {'BREACH' if n_bad else 'missed'}")
+    if not n_bad:
+        failures.append("quantize_elemwise check misses a flipped table entry")
+    built = qe.quantize_elemwise.table_builds - builds
+    log(f"  tables built in this phase: {built} for {len(formats)} formats")
+    if built != len(formats):
+        failures.append(f"quantize_elemwise built {built} tables for "
+                        f"{len(formats)} formats")
 
     # At the main path's shapes the grid-stride loop (at most 132 * 16
     # blocks of 256 threads) takes several rounds: bench.py's bf16 GEMM
@@ -948,6 +1142,7 @@ def rounding_kernel_phases(torch, timer):
         return (randn(*shape) * torch.exp2(randn(*shape) * 6)).to(dtype)
 
     down = spread(4096, 5504, dtype=bf16)
+    path_f32 = spread(4096, 1024, dtype=torch.float32)
     path_cases = [("(4096, 5504) bf16, down_proj input", down),
                   ("(4096, 2048) bf16, q/k/v/o and gate/up input",
                    spread(4096, 2048, dtype=bf16)),
@@ -955,7 +1150,7 @@ def rounding_kernel_phases(torch, timer):
                    spread(4, 16, 1024, 128, dtype=bf16)),
                   ("(4096, 5504) bf16 less its first element (unaligned)",
                    down.flatten()[1:]),
-                  ("(4096, 1024) f32", spread(4096, 1024, dtype=torch.float32))]
+                  ("(4096, 1024) f32", path_f32)]
     for dtype in ("posit8_1", "posit16_1", "e4m3", "e5m2", "fp6_e3m2",
                   "int8"):
         qfn = quantize_fn(dtype)
@@ -968,22 +1163,43 @@ def rounding_kernel_phases(torch, timer):
                 failures.append(f"quantize_elemwise {dtype} {name}")
     del path_cases
 
+    # the timed rows: bench.py's down_proj input, a small activation (one
+    # PTQ window's (1024, 4096), where the table's fill weighs most; both
+    # forms read) and an f32 tensor (the arithmetic form); beside each a
+    # copy of the same bytes (stream_ms, a yardstick)
     p8 = quantize_fn("posit8_1")
-    M, N = 4096, 5504
-    x = down
-    ms = timer(lambda: qe.quantize_elemwise(x, p8.fmt))
-    plain = timer(lambda: qe.quantize_elemwise_plain(x, p8))
-    lib = timer(lambda: x.to(torch.float8_e4m3fn).to(bf16))
-    b, by = bound_ms(2 * x.numel() * 2, 0)
-    log(f"  time posit8_1 ({M}, {N}) bf16: kernel_ms {ms:.4f} plain_ms "
-        f"{plain:.4f} library_ms {lib:.4f} (e4m3fn cast round trip) "
-        f"bound_ms {b:.4f} ({by})")
-    rows["quantize_elemwise"] = dict(
-        name="quantize_elemwise", route="cuda",
-        source="quantized_training_torch/csrc/quantize_elemwise.cu",
-        replaces="quantized_training_tpu/ops/pallas/quantize_elemwise.py:30",
-        max_abs_err=0.0, shape=f"posit8_1 bf16 ({M}, {N}) (down_proj input)",
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+    g12 = torch.Generator(device=dev).manual_seed(SEED + 12)
+    act = (torch.randn((1024, 4096), generator=g12, device=dev) * torch.exp2(
+        torch.randn((1024, 4096), generator=g12, device=dev) * 6)).to(bf16)
+    for key, x, what in (
+            ("quantize_elemwise", down, "down_proj input"),
+            ("quantize_elemwise_small", act, "a PTQ window's activation"),
+            ("quantize_elemwise_f32", path_f32, "f32")):
+        form = qe.elemwise_form(x.numel(), x.dtype, p8.fmt.kind)
+        ms = timer(lambda: qe.quantize_elemwise(x, p8.fmt))
+        plain = timer(lambda: qe.quantize_elemwise_plain(x, p8))
+        lib = timer(lambda: x.to(torch.float8_e4m3fn).to(x.dtype))
+        copy_ms = timer(lambda: torch.empty_like(x).copy_(x))
+        b, by = bound_ms(2 * x.numel() * x.element_size(), 0)
+        shape = tuple(x.shape)
+        log(f"  time posit8_1 {shape} {x.dtype}, {form} form: kernel_ms "
+            f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} (e4m3fn "
+            f"cast round trip) bound_ms {b:.4f} ({by}) stream_ms "
+            f"{copy_ms:.4f} (a copy of the same bytes)")
+        if x.dtype == bf16:
+            other = "arith" if form == "table" else "table"
+            log(f"    the {other} form: "
+                f"{timer(lambda: qe._quantize_elemwise(x, p8.fmt, other)):.4f} "
+                f"ms")
+        rows[key] = dict(
+            name="quantize_elemwise", route="cuda",
+            source="quantized_training_torch/csrc/quantize_elemwise.cu",
+            replaces="quantized_training_tpu/ops/pallas/quantize_elemwise.py:30",
+            max_abs_err=0.0, shape=f"posit8_1 {str(x.dtype)[6:]} {shape} "
+                                   f"({what}, {form} form)",
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+            stream_ms=copy_ms)
+    del act
 
     # ---- two-pass flash: p rounded to posit8_1 ----------------------------
     # Where the two sides' scores or logsumexp differ in the last f32 bit, a
@@ -1173,6 +1389,26 @@ def rounding_kernel_phases(torch, timer):
 CODEBOOK_FORMS = ("nf4", "nf4_6", "nf3", "bfloat16", "float16")
 
 
+def lookup_wavefronts(torch, x):
+    """The mean shared-memory wavefronts of the table form's warp-wide
+    lookups over x's first 2^22 bf16 values: lane l of a warp holds 8
+    consecutive values, its e-th lookup reads the table's 4-byte word
+    pattern >> 1 in bank (pattern >> 1) % 32, and a lookup takes as many
+    wavefronts as its busiest bank has distinct words."""
+    idx = x.reshape(-1)[:1 << 22].view(torch.int16).long() & 0xFFFF
+    word = (idx >> 1).reshape(-1, 32, 8)        # (warp round, lane, lookup)
+    total = 0.0
+    for e in range(8):
+        key, _ = (((word[:, :, e] & 31) << 16) | word[:, :, e]).sort(dim=1)
+        new = torch.ones_like(key, dtype=torch.long)
+        new[:, 1:] = (key[:, 1:] != key[:, :-1]).long()
+        per_bank = torch.zeros((key.shape[0], 32), dtype=torch.long,
+                               device=x.device)
+        per_bank.scatter_add_(1, key >> 16, new)
+        total += float(per_bank.max(dim=1).values.float().mean())
+    return total / 8
+
+
 def nf_faults(torch, x, qfn):
     """Plain outputs of two faulty NF searches over bf16 ``x``: the float32
     codebook searched and its entry stored by truncation (what the bf16
@@ -1225,25 +1461,31 @@ def codebook_kernel_phases(torch, timer):
              ("2^20 random f32 patterns", f32_bits.view(torch.float32)),
              ("(4096, 11008) bf16, a 7B gate/up weight", w),
              ("(4096, 11008) f32", spread(4096, 11008, dtype=torch.float32))]
+    qe.clear_tables()
+    builds = qe.quantize_elemwise.table_builds
     for dtype in CODEBOOK_FORMS:
         qfn = quantize_fn(dtype)
         for name, x in cases:
-            got = qe.quantize_elemwise(x, qfn.fmt)
             want = qe.quantize_elemwise_plain(x, qfn)
-            torch.cuda.synchronize()
-            n_bad, first = bit_mismatches(got, want)
             note = ""
             if x.numel() <= 1 << 20:
                 cpu_bad, _ = bit_mismatches(
                     want.cpu(), qe.quantize_elemwise_plain(x.cpu(), qfn))
                 note = (f"; the plain version on the card differs from the "
                         f"CPU's in {cpu_bad}")
-            log(f"  {dtype}, {name}: {n_bad} lanes differ from the plain "
-                f"version{f' (first {first})' if n_bad else ''}{note}")
-            if n_bad:
-                failures.append(f"quantize_elemwise {dtype} {name}")
+            for form in (("table", "arith") if x.dtype == bf16
+                         else ("arith",)):
+                got = qe._quantize_elemwise(x, qfn.fmt, form)
+                torch.cuda.synchronize()
+                n_bad, first = bit_mismatches(got, want)
+                log(f"  {dtype}, {name}, {form} form: {n_bad} lanes differ "
+                    f"from the plain version"
+                    f"{f' (first {first})' if n_bad else ''}{note}")
+                if n_bad:
+                    failures.append(f"quantize_elemwise {dtype} {name} "
+                                    f"{form}")
         if dtype in ("nf4", "nf4_6", "nf3"):
-            got = qe.quantize_elemwise(universe, qfn.fmt)
+            got = qe._quantize_elemwise(universe, qfn.fmt, "table")
             for fault, faulted in nf_faults(torch, universe, qfn).items():
                 n_bad, _ = bit_mismatches(got, faulted)
                 log(f"  planted fault, {dtype} {fault}: {n_bad} of the bf16 "
@@ -1253,16 +1495,26 @@ def codebook_kernel_phases(torch, timer):
                 if not n_bad and not (dtype == "nf4_6" and "f32" in fault):
                     failures.append(f"the check misses {dtype} {fault}")
     del cases
+    built = qe.quantize_elemwise.table_builds - builds
+    log(f"  tables built in this phase: {built} for {len(CODEBOOK_FORMS)} "
+        f"formats")
+    if built != len(CODEBOOK_FORMS):
+        failures.append(f"quantize_elemwise built {built} tables for "
+                        f"{len(CODEBOOK_FORMS)} formats")
 
     M, N = w.shape
     b, by = bound_ms(2 * w.numel() * 2, 0)
+    copy_ms = timer(lambda: torch.empty_like(w).copy_(w))
     for dtype in ("nf4", "nf4_6", "float16"):
         qfn = quantize_fn(dtype)
         ms = timer(lambda: qe.quantize_elemwise(w, qfn.fmt))
         plain = timer(lambda: qe.quantize_elemwise_plain(w, qfn))
-        log(f"  time {dtype} ({M}, {N}) bf16: kernel_ms {ms:.4f} plain_ms "
-            f"{plain:.4f} bound_ms {b:.4f} ({by}); no PyTorch call rounds "
-            f"to {'a codebook' if dtype != 'float16' else 'f16 and back'}")
+        log(f"  time {dtype} ({M}, {N}) bf16, "
+            f"{qe.elemwise_form(w.numel(), w.dtype, qfn.fmt.kind)} form: "
+            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} bound_ms {b:.4f} "
+            f"({by}) stream_ms {copy_ms:.4f} (a copy of the same bytes); no "
+            f"PyTorch call rounds to "
+            f"{'a codebook' if dtype != 'float16' else 'f16 and back'}")
         label = "cast" if dtype == "float16" else dtype
         rows[f"quantize_elemwise_{label}"] = dict(
             name=f"quantize_elemwise_{label}", route="cuda",
@@ -1270,7 +1522,25 @@ def codebook_kernel_phases(torch, timer):
             replaces="quantized_training_tpu/ops/pallas/quantize_elemwise.py:30",
             max_abs_err=0.0, shape=f"{dtype} bf16 ({M}, {N}) (7B gate/up "
                                    "weight)",
-            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by)
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by,
+            stream_ms=copy_ms)
+    # bank conflicts of the table form's lookups: the modelled shared-memory
+    # wavefronts a warp-wide lookup (distinct 4-byte words in its busiest
+    # bank) and the time, for a Gaussian weight, every bf16 pattern tiled
+    # and a constant (no conflict)
+    g11 = torch.Generator(device=dev).manual_seed(SEED + 11)
+    nf4 = quantize_fn("nf4")
+    for label, t in (
+            ("Gaussian weight (std 0.02)", (torch.randn(
+                (M, N), generator=g11, device=dev) * 0.02).to(bf16)),
+            ("every bf16 pattern, tiled", universe.repeat(
+                M * N // universe.numel() + 1)[:M * N].reshape(M, N)),
+            ("a constant", torch.full((M, N), 0.5, device=dev, dtype=bf16))):
+        log(f"  table form, nf4 ({M}, {N}) bf16, {label}: "
+            f"{lookup_wavefronts(torch, t):.3f} modelled wavefronts a "
+            f"warp-wide lookup, "
+            f"{timer(lambda: qe._quantize_elemwise(t, nf4.fmt, 'table')):.4f} ms")
+        del t
     # beside the posit8 row's shape, in turns
     x = spread(4096, 5504, dtype=bf16)
     p8, nf4 = quantize_fn("posit8_1"), quantize_fn("nf4")
@@ -1735,66 +2005,113 @@ def training_kernel_phases(torch, timer):
     del q, k, v, do, lse, o_unq, di
 
     # ---- packed 8-bit Adam: bit for bit ------------------------------------
+    # The train step's leaves (2048 x 2048, 2048 x 5504, 32000 x 2048) and
+    # BERT-base's MLP kernel (768 x 3072), random state, and a leaf whose
+    # gradients the error taps flushed (g and codes zero, as the train
+    # step's leaves below the lm_head are after its first step: every
+    # division and root there has a zero operand), at counts 1 and 7.  At
+    # nb=16384 also an edge leaf (``packed_edge_state``: lanes outside the
+    # fast paths' ranges, rows whose scales leave them) and, on all three,
+    # the constants under which the launch takes the intrinsics throughout
+    # (a first bias correction below 2^-20, eps 0, a subnormal eps).  Each
+    # nb's row counts the train step's launches at that nb.
     log("phase 2/3: adam8bit_packed (update, words and scales bit-equal to "
         "the plain version)")
+    bad = ad.fast_path_check(dev)
+    log(f"  its branch-free root and division against __fsqrt_rn and "
+        f"__fdiv_rn (every float in [2^-100, 2^100]; 2^32 random pairs in "
+        f"[2^-60, 2^60]; every divisor mantissa x 64): {bad} differ")
+    if any(bad):
+        failures.append(f"adam8bit_packed fast paths differ: {bad}")
     kw = dict(b1=0.9, b2=0.999, eps=1e-8)
     names = ("update", "m words", "m scales", "v words", "v scales")
-    for nb in (16384, 44032, 256000):
-        g2d = randn(nb, 256, scale=1e-3)
-        mc = torch.randint(-127, 128, (nb, 256), device=dev, generator=gen,
-                           dtype=torch.int32)
-        vc = torch.randint(0, 256, (nb, 256), device=dev, generator=gen,
-                           dtype=torch.int32)
-        state = (ad.pack_moment_rows(mc),
-                 ad.pack_scale_rows(torch.rand(nb, device=dev, generator=gen)
-                                    * 1e-4 + 1e-7),
-                 ad.pack_moment_rows(vc),
-                 ad.pack_scale_rows(torch.rand(nb, device=dev, generator=gen)
-                                    * 1e-4 + 1e-7))
+    gen14 = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for nb, data in ((16384, "random"), (44032, "random"), (256000, "random"),
+                     (9216, "random"), (16384, "zero"), (16384, "edge")):
+        rg = gen if nb != 9216 and data == "random" else gen14
+        if data == "random":
+            g2d = (torch.randn((nb, 256), generator=rg, device=dev) * 1e-3)
+            mc = torch.randint(-127, 128, (nb, 256), device=dev, generator=rg,
+                               dtype=torch.int32)
+            vc = torch.randint(0, 256, (nb, 256), device=dev, generator=rg,
+                               dtype=torch.int32)
+            msf = torch.rand(nb, device=dev, generator=rg) * 1e-4 + 1e-7
+            vsf = torch.rand(nb, device=dev, generator=rg) * 1e-4 + 1e-7
+        elif data == "zero":
+            g2d = torch.zeros((nb, 256), device=dev)
+            mc = vc = torch.zeros((nb, 256), device=dev, dtype=torch.int32)
+            msf = vsf = torch.ones(nb, device=dev)
+        else:
+            g2d, mc, msf, vc, vsf = packed_edge_state(torch, nb, rg)
+            reach = packed_edge_reach(torch, g2d, mc, msf, vc, vsf)
+            log(f"  the edge leaf's elements (rows) outside the fast paths' "
+                f"ranges: {reach}")
+            if not all(reach.values()):
+                failures.append(f"adam8bit_packed edge leaf misses a range: "
+                                f"{reach}")
+        state = (ad.pack_moment_rows(mc), ad.pack_scale_rows(msf),
+                 ad.pack_moment_rows(vc), ad.pack_scale_rows(vsf))
         del mc, vc
-        for count in (1, 7):
-            bc = bias_corrections(0.9, 0.999, count)
-            got = ad.fused_adam8bit_update_packed(g2d, *state, *bc, **kw)
+        cases = [(kw, count) for count in (1, 7)]
+        if nb == 16384:
+            cases += [(dict(kw, b2=0.9999999), 1), (dict(kw, eps=0.0), 1),
+                      (dict(kw, eps=1e-45), 1)]
+        for ckw, count in cases:
+            bc = bias_corrections(ckw["b1"], ckw["b2"], count)
+            got = ad.fused_adam8bit_update_packed(g2d, *state, *bc, **ckw)
             want = ad.fused_adam8bit_update_packed_plain(g2d, *state, *bc,
-                                                         **kw)
+                                                         **ckw)
             torch.cuda.synchronize()
             bad = [bit_mismatches(a, b)[0] for a, b in zip(got, want)]
-            log(f"  nb={nb} count={count}: lanes that differ "
-                f"{dict(zip(names, bad))}")
+            what = (f"nb={nb} {data} count={count}"
+                    + ("" if ckw is kw else f" b2={ckw['b2']} eps={ckw['eps']}"))
+            log(f"  {what}: lanes that differ {dict(zip(names, bad))}")
             if any(bad):
-                failures.append(f"adam8bit_packed nb={nb} count={count}")
-        if nb == 16384:
+                failures.append(f"adam8bit_packed {what}")
+        count = 7   # the planted faults' reference: count 7's outputs
+        bc = bias_corrections(0.9, 0.999, count)
+        got = ad.fused_adam8bit_update_packed(g2d, *state, *bc, **kw)
+        want = ad.fused_adam8bit_update_packed_plain(g2d, *state, *bc, **kw)
+        if nb == 16384 and data == "random":
             cpu = ad.fused_adam8bit_update_packed_plain(
                 g2d.cpu(), *(t.cpu() for t in state), *bc, **kw)
             cpu_bad = [bit_mismatches(a.cpu(), b)[0] for a, b in zip(want, cpu)]
             log(f"  nb={nb}: the plain version on the card differs from the "
                 f"CPU's in {dict(zip(names, cpu_bad))}")
-            faulted = ad.fused_adam8bit_update_packed_plain(
-                g2d, *state, *bias_corrections(0.9, 0.999, count + 1), **kw)
-            n_bad = bit_mismatches(got[0], faulted[0])[0]
-            log(f"  planted fault, the next count's bias corrections: "
-                f"{n_bad} update lanes differ")
-            if n_bad == 0:
-                failures.append("adam8bit check misses the planted fault")
-        if nb == 256000:
+            faults = packed_faults(torch, ad, g2d, state, msf, want,
+                                   lambda *st: ad.fused_adam8bit_update_packed_plain(
+                                       g2d, *st, *bc, **kw))
+            faults["the next count's bias corrections"] = \
+                ad.fused_adam8bit_update_packed_plain(
+                    g2d, *state, *bias_corrections(0.9, 0.999, count + 1), **kw)
+            for fault, faulted in faults.items():
+                n_bad = sum(bit_mismatches(a, b)[0]
+                            for a, b in zip(got, faulted))
+                log(f"  planted fault, {fault}: {n_bad} lanes differ "
+                    f"{'BREACH' if n_bad else 'missed'}")
+                if n_bad == 0:
+                    failures.append(f"adam8bit check misses the planted "
+                                    f"fault: {fault}")
+        if data == "random" and nb != 9216:
             bc = bias_corrections(0.9, 0.999, 7)
             ms = timer(lambda: ad.fused_adam8bit_update_packed(
                 g2d, *state, *bc, **kw))
             plain_ms = timer(lambda: ad.fused_adam8bit_update_packed_plain(
                 g2d, *state, *bc, **kw), reps=5)
-            n = nb * 256
-            b, by = bound_ms(n * 12 + 4 * (nb // 64) * 256 * 4, 0)
-            log(f"  time nb={nb} (embedding, lm_head): kernel_ms {ms:.4f} "
-                f"plain_ms {plain_ms:.4f} library_ms null (no PyTorch call "
-                f"computes this update) bound_ms {b:.4f} ({by})")
-            rows["adam8bit_packed"] = dict(
-                name="adam8bit_packed", route="cuda",
-                source="quantized_training_torch/csrc/adam8bit_step.cu",
-                replaces="quantized_training_tpu/ops/pallas/"
-                         "adam8bit_step.py:223",
-                max_abs_err=0.0, shape=f"nb={nb} (32000 x 2048 leaf)",
-                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
-                bound_by=by)
+            b, by = bound_ms(packed_adam_bytes(nb), 0)
+            log(f"  time nb={nb}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"library_ms null (no PyTorch call computes this update) "
+                f"bound_ms {b:.4f} ({by})")
+            leaf = {16384: "2048 x 2048", 44032: "2048 x 5504",
+                    256000: "32000 x 2048"}[nb]
+            rows["adam8bit_packed" + ("" if nb == 256000 else f"_{nb}")] = \
+                dict(name="adam8bit_packed", route="cuda",
+                     source="quantized_training_torch/csrc/adam8bit_step.cu",
+                     replaces="quantized_training_tpu/ops/pallas/"
+                              "adam8bit_step.py:223",
+                     max_abs_err=0.0, shape=f"nb={nb} ({leaf} leaf)",
+                     ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
+                     bound_by=by, nb=nb)
         del g2d, state, got, want
 
     # ---- unpacked 8-bit Adam (kernel 13): bit for bit -----------------------
@@ -4432,7 +4749,7 @@ def train_phase(torch, qt):
     of one step of each arm, a falling loss on the repeated batch and the
     launch counters of one step of each arm (returned: quantized, bf16)."""
     from quantized_training_torch.ops import launch_counts, \
-        reset_launch_counts
+        reset_launch_counts, shape_launch_counts
     from quantized_training_torch.training import (Adam8bit, causal_lm_loss,
                                                    make_train_step)
 
@@ -4471,6 +4788,7 @@ def train_phase(torch, qt):
             times.append((time.perf_counter() - t) * 1e3)
             if i == 0:
                 arm_counts = launch_counts()
+                arm_counts["shapes"] = shape_launch_counts()
             losses.append(float(loss))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = sorted(times)[steps // 2]
@@ -4487,9 +4805,10 @@ def train_phase(torch, qt):
             f"{result[arm]['grad_nonzero']}")
         # a profile of one step of each arm: kernels 2-4's share of it
         prof = profile(torch, lambda: step(batch), ms, "step",
-                       watch=("flash_bwd",))
+                       watch=("flash_bwd",) + K14_NAMES + K11_NAMES)
         if prof:
             result[arm]["profile"] = prof
+            path_sum(f"{arm} train step", prof, arm_counts["shapes"])
         if not all(math.isfinite(x) for x in losses):
             fail(f"train {arm}: a loss is not finite: {losses}")
         if not losses[-1] < losses[0]:
@@ -4705,7 +5024,7 @@ def bert_phase(torch, qt):
     printed, and the falling loss is read from 8 more steps at 3e-6 from
     the same weights (posit8 0.680 to 0.614, bf16 0.695 to 0.473 there)."""
     from quantized_training_torch.ops import launch_counts, \
-        reset_launch_counts
+        reset_launch_counts, shape_launch_counts
     from quantized_training_torch.training import (Adam8bit,
                                                    classification_loss,
                                                    make_train_step,
@@ -4745,6 +5064,7 @@ def bert_phase(torch, qt):
             times.append((time.perf_counter() - t) * 1e3)
             if i == 0:
                 arm_counts = launch_counts()
+                arm_counts["shapes"] = shape_launch_counts()
             losses.append(float(loss))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ms = sorted(times)[steps // 2]
@@ -4760,10 +5080,10 @@ def bert_phase(torch, qt):
         log(f"    losses {[round(x, 6) for x in losses]}")
         log(f"    launches in one step: {arm_counts}")
         prof = profile(torch, lambda: step(batch), ms, "step",
-                       watch=("adam8bit_unpacked", "adam8bit_packed",
-                              "quantize_elemwise"))
+                       watch=("adam8bit_unpacked",) + K14_NAMES + K11_NAMES)
         if prof:
             result[arm]["profile"] = prof
+            path_sum(f"BERT {arm} step", prof, arm_counts["shapes"])
         if arm == "posit8":
             counts = arm_counts
             if prof:
@@ -4971,7 +5291,7 @@ def ptq_presets_phase(torch, qt):
     per window forward, tokens/s, peak memory, kernel-11 launches per
     window (all forms, and the NormalFloat form)."""
     from quantized_training_torch.ops import launch_counts, \
-        reset_launch_counts
+        reset_launch_counts, shape_launch_counts
     from quantized_training_torch.quantize import build_preset
     from quantized_training_torch.utils import sliding_window_perplexity
     import numpy as np
@@ -4999,6 +5319,7 @@ def ptq_presets_phase(torch, qt):
             model(window)
             torch.cuda.synchronize()
             c = launch_counts()
+            shapes = c["shapes"] = shape_launch_counts()
         counts[label] = c
         times = []
 
@@ -5023,14 +5344,18 @@ def ptq_presets_phase(torch, qt):
             "perplexity": ppl, "windows": len(ms), "ms_per_window": med,
             "tokens_per_s": L / med * 1e3, "wall_s": wall, "peak_gib": peak,
             "kernel11_per_window": c["quantize_elemwise"],
-            "kernel11_nf_per_window": c["quantize_elemwise_nf"]}
+            "kernel11_nf_per_window": c["quantize_elemwise_nf"],
+            "kernel11_table_per_window": c["quantize_elemwise_table"],
+            "kernel11_tables_built": c["quantize_elemwise_table_builds"]}
         log(f"  {label}: perplexity {ppl:.4f}, {med:.3f} ms per window "
             f"(windows {[round(t, 3) for t in ms]}), {L / med * 1e3:.1f} "
             f"tokens/s, peak {peak:.2f} GiB, kernel 11 {c['quantize_elemwise']}"
             f" launches per window ({c['quantize_elemwise_nf']} NF)")
         if label in ("bf16", "linear4_matmul6_fp8_mixhead"):
             with torch.no_grad():
-                profile(torch, lambda: model(window), med, f"{label} window")
+                prof = profile(torch, lambda: model(window), med,
+                               f"{label} window", watch=K11_NAMES)
+            path_sum(f"{label} PTQ window", prof, shapes)
         if not math.isfinite(ppl) or len(ms) != 6:
             fail(f"ptq {label}: perplexity {ppl} over {len(ms)} windows")
         # every preset has an NF4 or NF4_6 element format
@@ -5291,9 +5616,13 @@ def main():
                 fail(f"{name}: ptxas serialized {fn}'s wgmma: "
                      f"{line.strip()}")
     # kernels 8 and 7 (the KIVI and int-sym decodes) may neither spill nor
-    # carry C7512/C7513
+    # carry C7512/C7513; kernel 14's packed functions and kernel 11's table
+    # and arithmetic forms may not spill
     for name, kern in (("kivi_decode", "kivi_mma"),
-                       ("int_kv_decode", "int_kv_mma")):
+                       ("int_kv_decode", "int_kv_mma"),
+                       ("adam8bit_step", "adam8bit_packed"),
+                       ("quantize_elemwise", "round_table"),
+                       ("quantize_elemwise", "round_arith")):
         fn = None
         for line in report.get(name, {}).get("log", "").splitlines():
             m = re.search(r"Function properties for (\S+)", line)
@@ -5341,6 +5670,13 @@ def main():
                     f"instructions")
                 if not n_mma[op]:
                     fail(f"{lib}: {fn} has no {op} instruction")
+
+    # the streaming kernels' instruction mix (kernel 14's packed step,
+    # kernel 11's table form), against the bytes' budget
+    for lib, only in (("adam8bit_step", "adam8bit_packed"),
+                      ("quantize_elemwise", "round_table")):
+        for fn, ops in sass_mix(_cuda.sass(lib), only).items():
+            log(f"  {lib} SASS, {fn[fn.find(only):][:40]}: {ops}")
 
     timer = Timer(torch)
     rows = run(kernel_phases, torch, timer)
@@ -5449,6 +5785,16 @@ def main():
             kernel = row["source"].rsplit("/", 1)[1][:-3]
             row["launches"] = prefill_counts[storage_fmt[kernel]]["shapes"][
                 kernel].get(TC_ROW_SHAPES[key], 0)
+        elif row["name"] == "adam8bit_packed":
+            row["launches"] = train["shapes"]["adam8bit_packed"].get(
+                row["nb"], 0)
+        elif key == "quantize_elemwise_small":
+            # the mixhead PTQ window's roundings of (1024, 4096) bf16
+            row["launches"] = ptq["linear4_matmul6_fp8_mixhead"]["shapes"][
+                "quantize_elemwise"].get((1024 * 4096, 2), 0)
+        elif key == "quantize_elemwise_f32":
+            row["launches"] = train["shapes"]["quantize_elemwise"].get(
+                (4096 * 1024, 4), 0)
         elif key == "flash_bwd_group":
             row["launches"] = sum(train[k] for k in (
                 "flash_bwd_di", "flash_bwd_dq", "flash_bwd_dkv"))
@@ -5457,6 +5803,7 @@ def main():
                 "flash_bwd_dq", "flash_bwd_dkv"))
         else:
             row["launches"] = path.get(key, ladder)[counter.get(key, key)]
+    log("path_sums " + json.dumps(PATH_SUMS))
     log("kernel 1's times before its redesign, constants, not measured in "
         "this run (the CUDA-core kernel's last whole run, NVIDIA H100 80GB "
         "HBM3 at 700 W): " + ", ".join(

@@ -8,9 +8,11 @@ kernel in ``flash_attention.two_pass_launches``; the launches of either
 flash form that also saved the logsumexp for the backward in
 ``flash_attention.lse_launches``; the integer-dot and K^T forms of the
 int-KV decode in ``int_kv_decode_attention.tile_launches``; the rounding
-kernel's NormalFloat and cast forms also in
-``quantize_elemwise.nf_launches`` and ``cast_launches``; the three
-storage GEMMs' launches also by (M, K, N) in ``shape_launches``).
+kernel's NormalFloat and cast formats also in
+``quantize_elemwise.nf_launches`` and ``cast_launches``, its table form in
+``table_launches`` and the tables it built in ``table_builds``; the three
+storage GEMMs', the packed 8-bit Adam step's and the rounding kernel's
+launches also by shape in ``shape_launches``).
 
 The submodules keep their names (``ops.flash_attention`` is the module);
 import the wrappers from them.
@@ -47,14 +49,23 @@ KERNEL_COUNTERS = {
                              "nf_launches"),
     "quantize_elemwise_cast": (quantize_elemwise.quantize_elemwise,
                                "cast_launches"),
+    "quantize_elemwise_table": (quantize_elemwise.quantize_elemwise,
+                                "table_launches"),
+    "quantize_elemwise_table_builds": (quantize_elemwise.quantize_elemwise,
+                                       "table_builds"),
     "quantized_matmul": (quantized_matmul.quantized_matmul, "launches"),
 }
 
 
-# kernel -> wrapper whose ``shape_launches`` tallies its launches by shape
+# kernel -> wrapper whose ``shape_launches`` tallies its launches by shape:
+# (M, K, N) for the storage GEMMs, nb for the packed 8-bit Adam step,
+# (elements, bytes an element) for the rounding kernel
 SHAPE_COUNTERS = {"affine_w4_matmul": affine_storage.affine_matmul,
                   "mx_storage_matmul": mx_storage.mx_matmul,
-                  "posit_storage_matmul": posit_storage.posit_matmul}
+                  "posit_storage_matmul": posit_storage.posit_matmul,
+                  "adam8bit_packed":
+                      adam8bit_step.fused_adam8bit_update_packed,
+                  "quantize_elemwise": quantize_elemwise.quantize_elemwise}
 
 
 def launch_counts() -> dict:
@@ -64,7 +75,7 @@ def launch_counts() -> dict:
 
 
 def shape_launch_counts() -> dict:
-    """{kernel: {(M, K, N): launches since the last reset}}."""
+    """{kernel: {shape: launches since the last reset}}."""
     return {name: dict(fn.shape_launches)
             for name, fn in SHAPE_COUNTERS.items()}
 

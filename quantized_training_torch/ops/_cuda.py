@@ -74,16 +74,27 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(tmp.with_suffix(".log"), "w+")
         proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out, log, time.perf_counter())
+    # each build's own wall time: poll all of them, not one after another
+    seconds = {}
+    while len(seconds) < len(jobs):
+        for name, (proc, *_, t0) in jobs.items():
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     report, failed = {}, []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    for name, (proc, tmp, out, log, _) in jobs.items():
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.remove(log.name)
+        report[name] = {"seconds": seconds[name], "log": text}
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{text}")
         else:
             os.replace(tmp, out)
     if failed:

@@ -25,6 +25,7 @@ true divisions and round half to even.  The kernel is held bit for bit to
 """
 
 import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -36,7 +37,7 @@ __all__ = ["BLOCK", "TILE_ROWS", "packable_rows", "pack_moment_rows",
            "adam_constants", "div_rn", "sqrt_rn",
            "fused_adam8bit_update", "fused_adam8bit_update_plain",
            "fused_adam8bit_update_packed",
-           "fused_adam8bit_update_packed_plain"]
+           "fused_adam8bit_update_packed_plain", "fast_path_check"]
 
 BLOCK = 256        # quantization block (elements per row)
 TILE_ROWS = 512    # rows per packed tile
@@ -162,8 +163,25 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for fn in (lib.adam8bit_packed, lib.adam8bit_unpacked):
             fn.argtypes = [vp] * 10 + [ci] + [cf] * 7 + [vp]
+        lib.adam8bit_fast_path_check.argtypes = [ctypes.c_ulonglong, vp, vp]
+        for fn in (lib.adam8bit_packed, lib.adam8bit_unpacked,
+                   lib.adam8bit_fast_path_check):
             fn.restype = ci
     return lib
+
+
+def fast_path_check(device, pairs: int = 1 << 32):
+    """Kernel 14's branch-free square root and division against the
+    intrinsics it stands in for, on the card: (every float in [2^-100,
+    2^100] through the root, ``pairs`` random pairs in [2^-60, 2^60] and
+    every divisor mantissa in [1, 2) with 64 dividends each through the
+    division) -> the three counts of results whose bits differ."""
+    lib = _lib()
+    bad = torch.zeros(3, dtype=torch.int64, device=device)
+    err = lib.adam8bit_fast_path_check(pairs, bad.data_ptr(),
+                                       _cuda.stream_ptr(bad.device))
+    _cuda.check(lib, err, "adam8bit_fast_path_check")
+    return [int(v) for v in bad.cpu()]
 
 
 def _outputs(name, g2d, state, want):
@@ -220,7 +238,8 @@ def fused_adam8bit_update_packed(g2d, m_words, m_scale, v_words, v_scale,
     leaf.  g2d (nb, 256) f32 with nb % 512 == 0, words (nb/4, 256) int32,
     scales (nb/64, 256) f32; ``bc1``/``bc2`` are the f32 bias corrections.
     Returns new tensors (update, m_words, m_scale, v_words, v_scale).  CPU
-    tensors take :func:`fused_adam8bit_update_packed_plain`."""
+    tensors take :func:`fused_adam8bit_update_packed_plain`.  Launches are
+    also tallied by nb in ``fused_adam8bit_update_packed.shape_launches``."""
     state = (m_words, m_scale, v_words, v_scale)
     kw = dict(b1=b1, b2=b2, eps=eps)
     if g2d.device.type == "cpu":
@@ -242,7 +261,9 @@ def fused_adam8bit_update_packed(g2d, m_words, m_scale, v_words, v_scale,
         float(bc1), float(bc2), _cuda.stream_ptr(g2d.device))
     _cuda.check(lib, err, "adam8bit_packed")
     fused_adam8bit_update_packed.launches += 1
+    fused_adam8bit_update_packed.shape_launches[nb] += 1
     return outs
 
 
 fused_adam8bit_update_packed.launches = 0
+fused_adam8bit_update_packed.shape_launches = Counter()   # by nb

@@ -9,7 +9,9 @@ forms, the decode form at M <= 8 and the wgmma form above it and at w4
 group 8, at ragged shapes also bit for bit on the identity's rows, as the
 MX8 and posit8 GEMMs in both forms, at every group, block size and es,
 with odd N and misaligned codes and scales), the rounding kernel takes
-the NormalFloat codebooks and native casts bit for bit, both decode
+the NormalFloat codebooks and native casts bit for bit and its table form
+every format over every bf16 pattern, the packed 8-bit Adam step is
+bit-equal at the train step's and BERT's leaf sizes, both decode
 kernels take every instantiated GQA group and head dim (and refuse the
 rest), and the KIVI decode holds its bounds where its split cuts the
 tokens, at empty and full tiers, past 256 K groups, and gives the same
@@ -716,6 +718,130 @@ def test_int_kv_tile_forms_launch_and_match_plain(cuda_device, int_dots,
     assert float(err.max()) <= 2e-3
     assert float((err > 1e-4 + 1e-3 * want.float().abs()).float().mean()) \
         <= 0.005
+
+
+def _bits_equal(got, want):
+    """Bit for bit, NaN lanes counted equal to each other."""
+    itype = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    both_nan = torch.isnan(got.float()) & torch.isnan(want.float())
+    return bool(((got.view(itype) == want.view(itype)) | both_nan).all())
+
+
+def _packed_edge_state(nb, gen):
+    """A packed leaf's g and state spread over f32's range (chip_smoke.py's
+    ``packed_edge_state``): lanes whose m or v leave kernel 14's fast
+    paths' ranges, rows whose scales do, zero rows, elements and state."""
+    dev = gen.device
+
+    def exps(shape, lo, hi):
+        return torch.exp2(torch.randint(lo, hi, shape, generator=gen,
+                                        device=dev).float())
+
+    g = torch.randn((nb, 256), generator=gen, device=dev) * exps(
+        (nb, 1), -75, 53) * exps((nb, 256), -6, 7)
+    g[::5] = 0.0
+    g[torch.rand((nb, 256), generator=gen, device=dev) < 0.05] = 0.0
+    mc = torch.randint(-127, 128, (nb, 256), generator=gen, device=dev,
+                       dtype=torch.int32)
+    vc = torch.randint(0, 256, (nb, 256), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ms = torch.rand(nb, generator=gen, device=dev) * exps((nb,), -75, 53)
+    vs = torch.rand(nb, generator=gen, device=dev) * exps((nb,), -60, 41)
+    mc[::7] = 0
+    vc[::7] = 0
+    ms[::7] = 1.0
+    vs[::7] = 1.0
+    # the ranges where the kernel leaves its fast paths, each reached
+    m = torch.tensor(0.9) * (mc.float() * ms[:, None]) + torch.tensor(
+        1.0 - 0.9) * g
+    root = vc.float() * vs[:, None]
+    v = torch.tensor(0.999) * (root * root) + torch.tensor(1.0 - 0.999) * (
+        g * g)
+    am = m.abs()
+    for reached in ((am > 0) & (am < 2.0 ** -40), am > 2.0 ** 40,
+                    (v > 0) & (v < 2.0 ** -80), v > 2.0 ** 80,
+                    am.amax(1) > 2.0 ** 50, v.amax(1) > 2.0 ** 50,
+                    (am.amax(1) > 0) & (am.amax(1) < 2.0 ** -50)):
+        assert bool(reached.any())
+    return g, mc, ms, vc, vs
+
+
+@pytest.mark.parametrize("nb", [16384, 44032, 256000, 9216])
+@pytest.mark.parametrize("data", ["random", "zero", "edge"])
+def test_packed_adam_bit_equal_at_the_leaf_sizes(cuda_device, nb, data):
+    """Kernel 14 at the posit8 train step's leaves (2048 x 2048, 2048 x
+    5504, 32000 x 2048) and BERT-base's MLP kernel (768 x 3072), from
+    random state, from a leaf whose gradients the error taps flushed
+    (zeros) and from an edge leaf (lanes and rows outside its fast paths'
+    ranges): update, words and scales (pad rows too) bit-equal to the plain
+    version at counts 1 and 7, and at the constants under which the launch
+    takes the intrinsics throughout (a first bias correction below 2^-20,
+    eps 0, a subnormal eps), one launch a call."""
+    from quantized_training_torch.training.optim8bit import bias_corrections
+    gen = torch.Generator(device=cuda_device).manual_seed(nb)
+    if data == "random":
+        g2d = torch.randn((nb, 256), generator=gen, device=cuda_device) * 1e-3
+        mc = torch.randint(-127, 128, (nb, 256), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+        vc = torch.randint(0, 256, (nb, 256), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+        ms = torch.rand(nb, generator=gen, device=cuda_device) * 1e-4 + 1e-7
+        vs = torch.rand(nb, generator=gen, device=cuda_device) * 1e-4 + 1e-7
+    elif data == "zero":
+        g2d = torch.zeros((nb, 256), device=cuda_device)
+        mc = vc = torch.zeros((nb, 256), device=cuda_device, dtype=torch.int32)
+        ms = vs = torch.ones(nb, device=cuda_device)
+    else:
+        g2d, mc, ms, vc, vs = _packed_edge_state(nb, gen)
+    state = (adam8bit_step.pack_moment_rows(mc),
+             adam8bit_step.pack_scale_rows(ms),
+             adam8bit_step.pack_moment_rows(vc),
+             adam8bit_step.pack_scale_rows(vs))
+    for b2, eps, count in ((0.999, 1e-8, 1), (0.999, 1e-8, 7),
+                           (0.9999999, 1e-8, 1), (0.999, 0.0, 1),
+                           (0.999, 1e-45, 1)):
+        kw = dict(b1=0.9, b2=b2, eps=eps)
+        bc = bias_corrections(0.9, b2, count)
+        got = _launches(adam8bit_step.fused_adam8bit_update_packed,
+                        lambda: adam8bit_step.fused_adam8bit_update_packed(
+                            g2d, *state, *bc, **kw))
+        want = adam8bit_step.fused_adam8bit_update_packed_plain(
+            g2d, *state, *bc, **kw)
+        for a, b in zip(got, want):
+            assert _bits_equal(a, b), (b2, eps, count)
+
+
+TABLE_FORMATS = ["posit8_1", "posit16_1", "e4m3", "e5m2", "fp6_e3m2", "int8",
+                 "nf3", "nf4", "nf4_6", "bfloat16", "float16"]
+
+
+@pytest.mark.parametrize("fmt", TABLE_FORMATS)
+def test_rounding_kernel_table_form_every_pattern(cuda_device, fmt):
+    """Kernel 11's table form for every format it takes: bit-equal to the
+    plain version over all 2^16 bf16 patterns, unaligned and ragged views
+    of them, and a 7B-sized weight; the arithmetic form too; the format's
+    table built once for all these calls."""
+    from quantized_training_torch.ops import quantize_elemwise as qe
+    qfn = quantize_fn(fmt)
+    universe = torch.arange(2 ** 16, dtype=torch.int32,
+                            device=cuda_device).to(torch.int16).view(
+                                torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = (torch.randn((4096, 1024), generator=gen, device=cuda_device)
+         * torch.exp2(torch.randn((4096, 1024), generator=gen,
+                                  device=cuda_device) * 4)).bfloat16()
+    qe.clear_tables()
+    builds = qe.quantize_elemwise.table_builds
+    for x in (universe, universe[1:], universe[3:-2], universe[:-7], w,
+              w.view(-1)[5:]):
+        want = qfn.plain(x)
+        for form in ("table", "arith"):
+            got = _launches(qe.quantize_elemwise,
+                            lambda: qe._quantize_elemwise(x, qfn.fmt, form))
+            assert _bits_equal(got, want), (form, x.numel())
+    assert qe.quantize_elemwise.table_builds - builds == 1
+    with pytest.raises(ValueError, match="no table form"):
+        qe._quantize_elemwise(universe.float(), qfn.fmt, "table")
 
 
 @pytest.mark.parametrize("fmt", ["nf4", "nf4_6", "nf3", "bfloat16",

@@ -239,3 +239,117 @@ def test_unpacked_plain_matches_jax(n, count):
     for i in (2, 4):
         np.testing.assert_allclose(got[i], pallas[i], rtol=1e-6)
     np.testing.assert_allclose(got[0], pallas[0], rtol=1e-5, atol=1e-6)
+
+
+def _edge_state(nb, seed=3):
+    """A packed leaf's g and state spread over f32's range: each row's
+    magnitudes near an exponent of its own, so moments fall below 2^-40
+    and above 2^40, v above 2^80 and below 2^-80, and rows' largest
+    magnitudes outside [2^-50, 2^50] (the ranges outside which kernel 14
+    leaves its fast paths), with zero rows, zero elements and rows of zero
+    state.  (g, m codes, m scales, v codes, v scales), numpy."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(-75, 53, (nb, 1)) + rng.integers(-6, 7, (nb, 256))
+    g = (rng.standard_normal((nb, 256)) * np.exp2(e)).astype(np.float32)
+    g[::5] = 0.0
+    g[rng.random((nb, 256)) < 0.05] = 0.0
+    mc = rng.integers(-127, 128, (nb, 256)).astype(np.int32)
+    vc = rng.integers(0, 256, (nb, 256)).astype(np.int32)
+    ms = (rng.random(nb) * np.exp2(rng.integers(-75, 53, nb))
+          ).astype(np.float32)
+    vs = (rng.random(nb) * np.exp2(rng.integers(-60, 41, nb))
+          ).astype(np.float32)
+    mc[::7] = 0
+    vc[::7] = 0
+    ms[::7] = 1.0
+    vs[::7] = 1.0
+    return g, mc, ms, vc, vs
+
+
+def _packed_case(data, nb=1024):
+    if data == "edge":
+        return _edge_state(nb)
+    if data == "zero":   # a leaf whose gradients the error taps flushed
+        return (np.zeros((nb, 256), np.float32),
+                np.zeros((nb, 256), np.int32), np.ones(nb, np.float32),
+                np.zeros((nb, 256), np.int32), np.ones(nb, np.float32))
+    rng = np.random.default_rng(11)
+    return ((rng.standard_normal((nb, 256)) * 1e-3).astype(np.float32),
+            rng.integers(-127, 128, (nb, 256)).astype(np.int32),
+            (rng.random(nb) * 1e-4 + 1e-7).astype(np.float32),
+            rng.integers(0, 256, (nb, 256)).astype(np.int32),
+            (rng.random(nb) * 1e-4 + 1e-7).astype(np.float32))
+
+
+def test_edge_state_reaches_every_slow_range():
+    """The edge leaf has elements in each range where kernel 14 leaves its
+    fast paths (its m and v, computed as the update computes them)."""
+    g, mc, ms, vc, vs = _edge_state(1024)
+    m = np.float32(0.9) * (mc * ms[:, None]).astype(np.float32) \
+        + np.float32(1.0 - 0.9) * g
+    root = (vc * vs[:, None]).astype(np.float32)
+    v = np.float32(0.999) * (root * root) + np.float32(1.0 - 0.999) * (g * g)
+    am = np.abs(m)
+    for what, n in (("|m| in (0, 2^-40)", ((am > 0) & (am < 2.0 ** -40))),
+                    ("|m| > 2^40", am > 2.0 ** 40),
+                    ("v in (0, 2^-80)", (v > 0) & (v < 2.0 ** -80)),
+                    ("v > 2^80", v > 2.0 ** 80),
+                    ("a row's max |m| > 2^50", am.max(1) > 2.0 ** 50),
+                    ("a row's max |m| in (0, 2^-50)",
+                     (am.max(1) > 0) & (am.max(1) < 2.0 ** -50)),
+                    ("a row's max v > 2^50", v.max(1) > 2.0 ** 50)):
+        assert n.sum() > 0, what
+
+
+@pytest.fixture
+def flushed_subnormals():
+    """f32 subnormals flushed to zero in torch's CPU arithmetic, as XLA's
+    CPU backend (and the TPU) flushes them; the port's plain versions and
+    kernels keep them, so the two differ only where a value is subnormal
+    (ROADMAP C).  The flag is the calling thread's, so torch runs on this
+    thread alone meanwhile."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    assert torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("b1,b2,eps,count", [
+    (0.9, 0.999, 1e-8, 1), (0.9, 0.999, 1e-8, 7), (0.9, 0.9999999, 1e-8, 1),
+    (0.9, 0.999, 0.0, 1), (0.9, 0.999, 1e-45, 1)])
+@pytest.mark.parametrize("data", ["random", "zero", "edge"])
+def test_packed_step_matches_jax_at_the_edges(flushed_subnormals, data, b1,
+                                              b2, eps, count):
+    """The packed leaf's step as the port runs it on the CPU (kernel 14's
+    plain version) bit for bit against the reference's XLA path of a
+    packed leaf (training/optim8bit.py:203-217, through
+    ``scale_by_adam8bit``'s update from the same state at count - 1):
+    update, words and scales, pad rows too, NaN lanes compared as NaN.
+    From random state, zeros and the edge leaf, at the usual constants,
+    at a b2 whose first bias correction is below 2^-20, and at eps 0 and
+    a subnormal eps (the cases where kernel 14 takes the intrinsics)."""
+    g, mc, ms, vc, vs = _packed_case(data)
+    tx = jax_optim.scale_by_adam8bit(b1=b1, b2=b2, eps=eps)
+    state = jax_optim.ScaleByAdam8bitState(
+        count=jnp.int32(count - 1),
+        mu={"w": jax_optim._Moment8(jax_step.pack_moment_rows(jnp.asarray(mc)),
+                                    jax_step.pack_scale_rows(jnp.asarray(ms)))},
+        nu={"w": jax_optim._Moment8(jax_step.pack_moment_rows(jnp.asarray(vc)),
+                                    jax_step.pack_scale_rows(jnp.asarray(vs)))})
+    upd, new = tx.update({"w": jnp.asarray(g)}, state)
+    want = (upd["w"], new.mu["w"].codes, new.mu["w"].scale,
+            new.nu["w"].codes, new.nu["w"].scale)
+    got = step.fused_adam8bit_update_packed(
+        _t(g), step.pack_moment_rows(_t(mc)), step.pack_scale_rows(_t(ms)),
+        step.pack_moment_rows(_t(vc)), step.pack_scale_rows(_t(vs)),
+        *optim8bit.bias_corrections(b1, b2, count), b1=b1, b2=b2, eps=eps)
+    for name, a, b in zip(("update", "m words", "m scales", "v words",
+                           "v scales"), got, want):
+        a, b = a.numpy(), _np(b)
+        assert a.dtype == b.dtype, name
+        both_nan = (np.isnan(a) & np.isnan(b) if a.dtype == np.float32
+                    else np.zeros(a.shape, bool))
+        assert ((a.view(np.int32) == b.view(np.int32)) | both_nan).all(), \
+            name
