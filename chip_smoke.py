@@ -83,7 +83,23 @@ Phases, each of which exits non-zero on failure:
  12. the six presets and bf16 on the full 32-layer LLaMA-2 7B (f32
      parameters held once) through sliding_window_perplexity, 4096 seeded
      tokens in 6 windows of 1024: perplexity, ms per window, tokens/s,
-     peak memory, kernel-11 launches per window (the ``ptq {...}`` line).
+     peak memory, kernel-11 launches per window (the ``ptq {...}`` line);
+ 13. speculative decoding at benchmarks/speculative_bench.py's geometry
+     (after phase 6): the flagship's weights as the target (packed uint2
+     KIVI, P=256, R=102) and as the int4 target, an 8-layer bf16 draft and
+     a self draft on the full-precision ring, one 256-token prompt, 96
+     tokens, k=4: ms per token of each run and of the target alone (naive
+     decode, kernels 8 and 7), greedy tokens against the naive target
+     alone (a parting only at a near tie), the verify block against the
+     same tokens one at a time, the self draft's accepted lengths, two
+     sampled seeds, and the launch counters (kernel 5 at M = 5 in every
+     verify round, kernels 7 and 8 in none; ``speculative {...}``);
+ 14. GPTQ against RTN by benchmarks/gptq_bench.py's protocol at the 7B
+     shapes through kernel 5 (and the share of codes that differ from a
+     CPU solve), then the calibration pipeline on 2 layers at 7B width:
+     Hessians and amaxes, GPTQ w4a16 and w2a16, AWQ + w4a16, SmoothQuant +
+     w8a8, the smoothed forwards against the unsmoothed, each model served
+     and held to the CPU (``calibration {...}``).
      Phases 7-12 run before phase 6.  Phase 2/3 also holds kernel 11's
      NormalFloat-codebook and native-cast forms (nf4, nf4_6, nf3, bf16,
      f16) bit for bit over every bf16 pattern, 2^20 f32 patterns and a 7B
@@ -3189,7 +3205,9 @@ W4_DECODE_ROWS = {
     "affine_w4_matmul_down": ("down", "7B", 8, 11008, 4096),
     "affine_w4_matmul_lm_head": ("lm_head", "7B", 8, 4096, 32000),
     "affine_w4_matmul_phi3": ("qkv", "Phi-3-medium", 8, 5120, 7680),
-    "affine_w4_matmul_phi3_down": ("down", "Phi-3-medium", 8, 17920, 5120)}
+    "affine_w4_matmul_phi3_down": ("down", "Phi-3-medium", 8, 17920, 5120),
+    # phase 13's verify block: k + 1 = 5 tokens through the fused qkv
+    "affine_w4_matmul_verify": ("verify qkv", "7B", 5, 4096, 12288)}
 # kernel 5's decode rows -> their (M, K, N), filled by w4_decode_phases
 W4_ROW_SHAPES = {}
 # LLaMA-2 13B's decode GEMM shapes (K, N), the w2 format's (w2a16_kivi2_13b)
@@ -3369,7 +3387,9 @@ def w4_decode_phases(torch, timer, failures):
             f"{lib:.4f} (bf16 matmul on the dequantized weight) stream_ms "
             f"{stream:.4f} (int64 sum of the words and qparams) bound_ms "
             f"{b:.4f} ({by})")
-        serving = "Phi-3 KIVI" if model.startswith("Phi") else "7B KIVI"
+        serving = ("Phi-3 KIVI serving run" if model.startswith("Phi")
+                   else "phase 13 speculative run with the 8-layer draft"
+                   if key.endswith("verify") else "7B KIVI serving run")
         row_shapes[key] = (M, K, N)
         rows[key] = dict(
             name=key, route="cuda",
@@ -3378,7 +3398,7 @@ def w4_decode_phases(torch, timer, failures):
             shape=f"decode {label} M={M} K={K} N={N} ({model}), w4 group "
             f"64; library = bf16 torch.matmul on the dequantized weight; "
             f"stream = int64 sum of the words and qparams; launches = "
-            f"launches at M={M} K={K} N={N} in the {serving} serving run",
+            f"launches at M={M} K={K} N={N} in the {serving}",
             ms=ms, plain_ms=plain_ms, library_ms=lib, stream_ms=stream,
             bound_ms=b, bound_by=by)
         del p, w, x
@@ -5370,7 +5390,8 @@ def ptq_presets_phase(torch, qt):
     return counts
 
 
-def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
+def serve_phase(torch, qt, cache="int4", label="serving", geom="7b",
+                keep_weights=False):
     """16 greedy requests (32 new tokens each) through
     ContinuousBatchingEngine on 8 slots of the full w4a16 model with
     ``cache``: LLaMA-2 7B (32 layers, prompts 64-2048 tokens), or
@@ -5378,7 +5399,8 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
     64-1984 tokens, so that every request stays under its 2047-token
     sliding window).  Then profiles one prefill of a longest prompt: the
     storage GEMM's and the flash forward's device time in it.  Prints
-    ``<label> {...}`` and returns the launch counters of the run."""
+    ``<label> {...}`` and returns the launch counters of the run (with
+    ``keep_weights``, also the model's packed weights, for phase 13)."""
     from quantized_training_torch.ops import launch_counts, \
         reset_launch_counts, shape_launch_counts
     import numpy as np
@@ -5558,8 +5580,540 @@ def serve_phase(torch, qt, cache="int4", label="serving", geom="7b"):
             **{f"{k}_ms": v for k, v in prof["watched_ms"].items()}},
         "decode_forward_profile": decode_prof}
     log(f"{label} " + json.dumps(result))
+    weights = model.state_dict() if keep_weights else None
     del engine, model
-    return launches
+    return (launches, weights) if keep_weights else launches
+
+
+# Phase 13: benchmarks/speculative_bench.py's geometry (:44-60, :93-94): one
+# 256-token prompt (seed 0), 96 new tokens, k = 4; the 32-layer 7B w4a16
+# target on a cache of P = 256, R = 96 + 4 + 2, and its 8-layer bf16 draft
+SPEC_S, SPEC_NEW, SPEC_K = 256, 96, 4
+# Where greedy speculative tokens part from the naive target alone's, the
+# target's top-two logit gap at that step may be at most SPEC_TIE_MARGIN:
+# a near tie that the verify block's and the single steps' summation
+# orders break apart (kernel 5 splits K otherwise at M = 5 than at M = 1,
+# and 32 random layers carry a last-bit difference on).  The verify
+# block's logits against the same k+1 tokens fed one at a time (both
+# naive, from one cache): max |diff| over max |logit| at most
+# SPEC_VERIFY_BOUND.  The first card reading (H100, 700 W): partings at
+# gaps 0.0469, 0.0 and 0.0313; the verify block 0.01875.
+SPEC_TIE_MARGIN = 0.1
+SPEC_VERIFY_BOUND = 0.05
+# Phase 14b's smoothed forwards: in f32 the fold is an exact identity, so
+# the smoothed logits are the unsmoothed ones to f32 rounding (relative
+# error at most SMOOTH_F32_BOUND); in bf16 they re-round at the shifted
+# magnitudes, held to tests/test_smooth.py's bound (8e-2 + 6e-2|x|) with a
+# cap on the share of logits outside it: that bound was set on the tiny
+# model's 8192 logits, and the first card reading over 2 layers at 7B
+# width (512 x 32000 logits) needed 0.0842 at its rtol.
+SMOOTH_F32_BOUND = 1e-4
+SMOOTH_SHARE_CAP = 1e-4
+# the card's name and power limit (nvidia-smi), printed beside every time
+# of phases 13 and 14
+CARD = ""
+
+
+def spec_target_config(qt, cache, fused=True):
+    """Phase 13's target: serving_config's 32-layer 7B w4a16 (fused qkv,
+    flash prefill) on a cache of P = SPEC_S, R = SPEC_NEW + SPEC_K + 2,
+    packed uint2 KIVI (``kivi2``) or slice 1's int4; ``fused`` is
+    use_fused_kivi (False: the naive decode, the verify block's path)."""
+    from dataclasses import replace
+    cfg, qc = serving_config(qt, 32, "w4a16", cache)
+    P, R = SPEC_S, SPEC_NEW + SPEC_K + 2
+    kcfg = (kivi_config(P, R) if cache == "kivi2"
+            else qt.KVCacheConfig.int_sym(P, R, 4))
+    return replace(cfg, kv_cache=kcfg, max_position_embeddings=P + R,
+                   use_fused_kivi=fused), qc
+
+
+def spec_draft_config(qt):
+    """speculative_bench.py:49-60's draft: 8 layers, hidden 2048, 16 heads,
+    bf16, on the full-precision ring."""
+    return qt.LlamaConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+        num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=SPEC_S + SPEC_NEW + SPEC_K + 2,
+        use_flash_attention=True)
+
+
+def on_card(qt, cfg, qc, weights):
+    """A model on the card holding ``weights`` themselves (no copy)."""
+    model = qt.LlamaForCausalLM(cfg, qc, device="meta")
+    model.load_state_dict(weights, assign=True)
+    return model
+
+
+def token_gaps(torch, model):
+    """A forward hook that keeps the top-two logit gap of each call's last
+    position (a greedy step's margin), and its handle."""
+    gaps = []
+
+    def hook(mod, args, out):
+        top = out[0][0, -1].float().topk(2).values
+        gaps.append(top[0] - top[1])
+    return gaps, model.register_forward_hook(hook)
+
+
+def verify_indices(model):
+    """A hook that keeps the cache_index of each decode_append forward (a
+    verify round's length p), and its handle."""
+    idx = []
+
+    def pre(mod, args, kwargs):
+        if kwargs.get("decode_append"):
+            idx.append(int(kwargs["cache_index"]))
+    return idx, model.register_forward_pre_hook(pre, with_kwargs=True)
+
+
+def compare_greedy(torch, what, got, want, gaps, failures,
+                   ref="the naive target alone's"):
+    """Greedy tokens against the reference's (the naive target alone's):
+    equal, or parting where the reference's top-two gap is within
+    SPEC_TIE_MARGIN."""
+    g, w = got[0, SPEC_S:].tolist(), want[0, SPEC_S:].tolist()
+    step = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+    if step is None:
+        log(f"  {what}: {len(g)} tokens, equal to {ref}")
+        return
+    gap = float(gaps[step])
+    log(f"  {what}: tokens part from {ref} at step {step} ({g[step]} "
+        f"against {w[step]}); the target's top-two gap there {gap:.5f} (at "
+        f"most {SPEC_TIE_MARGIN})")
+    if gap > SPEC_TIE_MARGIN:
+        failures.append(f"{what}: greedy tokens part at step {step} where "
+                        f"the target's top-two gap is {gap:.5f}")
+
+
+def speculative_phase(torch, qt, weights):
+    """Phase 13: speculative decoding at speculative_bench.py's geometry.
+    The target holds the flagship serve phase's packed weights
+    (``weights``).  Runs: the target alone on the naive decode and with
+    kernel 8; speculative decoding with the 8-layer draft; with a self
+    draft (the target's weights on the full-precision ring: accepted
+    lengths above 0 and rewinds); the int4 target (kernel 7 alone) with
+    the draft; sampling at temperature 1.0 with two generator seeds.
+    Checks greedy tokens against the naive target alone (the int4 runs
+    against the int4 target alone, kernel 7's), the verify block
+    from shared state against single steps, that the self draft accepts,
+    the sampled tokens, and the launch counters (kernel 5 at M = k+1 in
+    the verify rounds, kernels 7 and 8 never in them).  Returns the
+    launch counters of the draft's KIVI run."""
+    from dataclasses import replace
+    from collections import Counter
+    from quantized_training_torch.ops import launch_counts, \
+        reset_launch_counts, shape_launch_counts
+    import numpy as np
+    S, NEW, K = SPEC_S, SPEC_NEW, SPEC_K
+    log(f"phase 13: speculative decoding, target 7B w4a16 (32 layers) on "
+        f"packed uint2 KIVI P={S} R={NEW + K + 2} and int4, draft 8 layers "
+        f"hidden 2048 bf16 on the full-precision ring, one {S}-token prompt "
+        f"(seed {SEED}), {NEW} new tokens, k={K}; {CARD}")
+    fresh_peak(torch)
+    failures = []
+    cfg, qc = spec_target_config(qt, "kivi2", fused=False)
+    naive = on_card(qt, cfg, qc, weights)
+    target = on_card(qt, replace(cfg, use_fused_kivi=True), qc, weights)
+    self_draft = on_card(qt, replace(
+        cfg, kv_cache=None, max_position_embeddings=S + NEW + K + 2), qc,
+        weights)
+    int4 = on_card(qt, spec_target_config(qt, "int4")[0], qc, weights)
+    dcfg = spec_draft_config(qt)
+    draft = on_card(qt, dcfg, None, qt.random_params(
+        dcfg, None, seed=SEED + 1, device="cuda"))
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, S))).cuda()
+
+    def timed(fn, label):
+        """fn() once, its ms per new token, and the launch counters of
+        that run (with the storage GEMMs' launches by shape)"""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / NEW
+        counts = launch_counts()
+        counts["shapes"] = shape_launch_counts()
+        log(f"  {label}: {ms:.3f} ms per token ({CARD})")
+        return out, ms, counts
+
+    def spec(draft_model, target_model, **kw):
+        return qt.speculative_generate(target_model, draft_model, ids, NEW,
+                                       k=K, return_stats=True, **kw)
+
+    def naive_alone(model, label):
+        """the target alone, timed, with each step's top-two gap"""
+        gaps, h = token_gaps(torch, model)
+        out, ms, counts = timed(lambda: qt.generate(model, ids, NEW), label)
+        h.remove()
+        return out, torch.stack(gaps).cpu(), ms, counts
+
+    with torch.no_grad():
+        qt.generate(target, ids, 2)                         # warm
+        want, gaps, ms_naive, c_naive = naive_alone(
+            naive, "target alone, naive decode")
+        out8, ms_k8, c_k8 = timed(lambda: qt.generate(target, ids, NEW),
+                                  "target alone, kernel 8")
+        compare_greedy(torch, "target alone, kernel 8", out8, want, gaps,
+                       failures)
+        (out, st), ms_draft, c_draft = timed(lambda: spec(draft, target),
+                                             "speculative, 8-layer draft")
+        compare_greedy(torch, "speculative, 8-layer draft", out, want, gaps,
+                       failures)
+        idx, h = verify_indices(target)
+        (out, st_self), ms_self, c_self = timed(
+            lambda: spec(self_draft, target), "speculative, self draft")
+        h.remove()
+        compare_greedy(torch, "speculative, self draft", out, want, gaps,
+                       failures)
+        # accepted lengths per round: the next round's p less this one's,
+        # less one; the last round's from the total accepted
+        m = [b - a - 1 for a, b in zip(idx, idx[1:])]
+        m.append(round(st_self["accept_rate"] * st_self["rounds"] * K)
+                 - sum(m))
+        hist = dict(sorted(Counter(m).items()))
+        log(f"  self draft: {st_self['rounds']} rounds, accept rate "
+            f"{st_self['accept_rate']:.4f}, accepted lengths {hist}")
+        if not any(n > 0 for n in m):
+            failures.append("the self draft accepted no draft token")
+        # the int4 target's reference: the target alone with kernel 7
+        want4, gaps4, ms_k7, c_k7 = naive_alone(
+            int4, "int4 target alone, kernel 7")
+        (out, st4), ms_int4, c_int4 = timed(lambda: spec(draft, int4),
+                                            "speculative on int4, draft")
+        compare_greedy(torch, "speculative on int4, draft", out, want4,
+                       gaps4, failures, "kernel 7's target alone")
+        sampled = []
+        for seed in (1, 2):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            (out, st_s), ms_s, _ = timed(
+                lambda: spec(draft, target, temperature=1.0, generator=gen),
+                f"sampled (T=1.0, seed {seed}), draft")
+            tok = out[0, S:]
+            log(f"    accept rate {st_s['accept_rate']:.4f} in "
+                f"{st_s['rounds']} rounds")
+            if not bool(((tok >= 0) & (tok < cfg.vocab_size)).all()):
+                failures.append(f"sampled seed {seed}: a token outside the "
+                                "vocab")
+            sampled.append((tok.cpu(), st_s["accept_rate"], ms_s))
+        if torch.equal(sampled[0][0], sampled[1][0]):
+            failures.append("the two generator seeds sampled equal tokens")
+
+        # the verify block from shared state: the naive chain's first k+1
+        # tokens appended at once (decode_append) and fed one at a time
+        # (the naive decode), each from a copy of one prefill cache
+        _, caches = target(ids, use_cache=True, prompt_len=S,
+                           last_logit_only=True)
+        block = want[:, S:S + K + 1]
+        copy = lambda cs: [type(c)(*(t.clone() for t in c)) for c in cs]
+        lv, _ = target(block, use_cache=True, caches=copy(caches),
+                       cache_index=S, decode_append=True)
+        c1, rows = copy(caches), []
+        for j in range(K + 1):
+            lo, c1 = naive(block[:, j:j + 1], use_cache=True, caches=c1,
+                           cache_index=S + j)
+            rows.append(lo[:, -1])
+        lo = torch.stack(rows, dim=1)
+        rel = float((lv - lo).abs().max() / lo.abs().max())
+        log(f"  verify block ({K + 1} tokens) against the same tokens one "
+            f"at a time: max |diff| / max |logit| {rel:.6f} (at most "
+            f"{SPEC_VERIFY_BOUND})")
+        if not rel <= SPEC_VERIFY_BOUND:
+            failures.append(f"verify block differs by {rel:.6f}")
+        del caches, c1, lv, lo
+    # the fused qkv GEMM's (K, N)
+    qkv = (cfg.hidden_size, cfg.kv_heads * (cfg.num_attention_heads
+                                           // cfg.kv_heads + 2) * cfg.head_dim)
+    for label, counts in (("8-layer draft", c_draft), ("self draft", c_self),
+                          ("int4 target", c_int4)):
+        m5 = counts["shapes"]["affine_w4_matmul"].get((K + 1, *qkv), 0)
+        log(f"  launches, speculative with the {label}: kernel 5 at M={K + 1}"
+            f" K={qkv[0]} N={qkv[1]} {m5}; kivi_decode "
+            f"{counts['kivi_decode']}, "
+            f"int_kv_decode {counts['int_kv_decode']} (both must be 0); "
+            f"flash_attn_fwd {counts['flash_attn_fwd']}")
+        if not m5 or counts["kivi_decode"] or counts["int_kv_decode"] \
+                or not counts["flash_attn_fwd"]:
+            failures.append(f"launches of the {label}'s run: M={K + 1} "
+                            f"{m5}, decode kernels {counts['kivi_decode']} "
+                            f"{counts['int_kv_decode']}, flash "
+                            f"{counts['flash_attn_fwd']}")
+    for label, counts, kernel in (("kernel 8", c_k8, "kivi_decode"),
+                                  ("kernel 7", c_k7, "int_kv_decode")):
+        m1 = counts["shapes"]["affine_w4_matmul"].get((1, *qkv), 0)
+        log(f"  launches, target alone with {label}: {kernel} "
+            f"{counts[kernel]}, kernel 5 at M=1 {m1}")
+        if counts[kernel] != cfg.num_hidden_layers * (NEW - 1) or not m1:
+            failures.append(f"target alone with {label}: {kernel} "
+                            f"{counts[kernel]}, M=1 {m1}")
+    if c_naive["kivi_decode"] or c_naive["int_kv_decode"]:
+        failures.append("the naive target alone launched a decode kernel")
+    result = {
+        "card": CARD, "ms_per_token": {
+            "target_naive": ms_naive, "target_kernel8": ms_k8,
+            "speculative_draft": ms_draft, "speculative_self_draft": ms_self,
+            "int4_target_kernel7": ms_k7, "speculative_int4_draft": ms_int4,
+            "sampled_seed1": sampled[0][2], "sampled_seed2": sampled[1][2]},
+        "accept_rate": {"draft": st["accept_rate"],
+                        "self_draft": st_self["accept_rate"],
+                        "int4_draft": st4["accept_rate"],
+                        "sampled_seed1": sampled[0][1],
+                        "sampled_seed2": sampled[1][1]},
+        "rounds": {"draft": st["rounds"], "self_draft": st_self["rounds"]},
+        "self_draft_accepted_lengths": hist, "verify_block_rel_diff": rel,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log("speculative " + json.dumps(result))
+    del naive, target, self_draft, int4, draft
+    if failures:
+        fail(f"phase 13: {failures}")
+    return c_draft
+
+
+# phase 14a's shapes, gptq_bench.py's: the 7B qkvo and gate/up kernels
+GPTQ_SHAPES = (((4096, 4096), "qkvo"), ((4096, 11008), "gate_up"))
+
+
+def timed_solves(torch, gq, solves):
+    """Wraps gptq_quantize so that each solve's (K, N) and seconds go to
+    ``solves``; returns the original."""
+    real = gq.gptq_quantize
+
+    def solve(w, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(w, *args, **kw)
+        torch.cuda.synchronize()
+        solves.append((tuple(w.shape), time.perf_counter() - t))
+        return out
+    gq.gptq_quantize = solve
+    return real
+
+
+def calibration_phase(torch, qt):
+    """Phase 14: (a) GPTQ against RTN by benchmarks/gptq_bench.py's
+    protocol at the 7B shapes (512 correlated calibration rows, X = Z C
+    with C a squared random matrix; nbits 4 and 2, group 64), both packings
+    evaluated through kernel 5; the same solve on the CPU over the first
+    256 columns (GPTQ's columns are independent), the share of codes that
+    differ printed.  (b) The pipeline on 2 layers at 7B width: Hessians
+    and amaxes over 4 random 512-token batches, GPTQ w4a16 and w2a16
+    storage, AWQ search then smooth_llama then w4a16, SmoothQuant then
+    w8a8; the smoothed forwards against the unsmoothed one (in f32 to f32
+    rounding, in bf16 at tests/test_smooth.py's bound with a share cap,
+    and a planted fault), each served model's kernel path against the
+    CPU's plain path from shared weights, and a few greedy requests
+    through ContinuousBatchingEngine each."""
+    from quantized_training_torch.ops import affine_storage as aff
+    from quantized_training_torch.ops import launch_counts, \
+        reset_launch_counts
+    from quantized_training_torch.quantize import gptq as gq
+    from quantized_training_torch.quantize import smooth as sm
+    failures = []
+    group, n_calib, cols = 64, 512, 256
+    log(f"phase 14a: GPTQ vs RTN, gptq_bench.py's protocol: {n_calib} "
+        f"correlated rows, 7B shapes, group {group}, both evaluated "
+        f"through kernel 5; {CARD}")
+    fresh_peak(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gptq_rows = {}
+    reset_launch_counts()
+    for (K, N), name in GPTQ_SHAPES:
+        W = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+        C = torch.randn((K, K), generator=gen, device="cuda") / math.sqrt(K)
+        C = C @ C
+        X = torch.randn((n_calib, K), generator=gen, device="cuda") @ C
+        H = gq.hessian_from_inputs(X)
+        Xb = X.to(torch.bfloat16)
+        ref = Xb.float() @ W
+        ref_norm = torch.linalg.norm(ref)
+        W_cpu, H_cpu = W[:, :cols].cpu(), H.cpu()
+        for nbits in (4, 2):
+            rtn = aff.pack_affine_weights(W, nbits, group)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, codes, sf, zp = gq.gptq_quantize(W, H, nbits, group)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t
+            errs = {}
+            for arm, (p, s, z) in (
+                    ("rtn", rtn),
+                    ("gptq", aff.plane_pack(codes, sf, zp, nbits, group))):
+                y = aff.affine_matmul(Xb, p, s, z, nbits=nbits,
+                                      group_size=group)
+                errs[arm] = float(torch.linalg.norm(y.float() - ref)
+                                  / ref_norm)
+            t = time.perf_counter()
+            _, codes_cpu, _, _ = gq.gptq_quantize(W_cpu, H_cpu, nbits, group)
+            cpu_s = time.perf_counter() - t
+            differ = float((codes[:, :cols].cpu() != codes_cpu).float()
+                           .mean())
+            row = {"rel_err_rtn": errs["rtn"], "rel_err_gptq": errs["gptq"],
+                   "rtn_over_gptq": errs["rtn"] / errs["gptq"],
+                   "solve_s": solve_s, "cpu_solve_s_256_columns": cpu_s,
+                   "codes_differing_from_cpu": differ}
+            gptq_rows[f"{name}_w{nbits}"] = row
+            log(f"  {name} ({K}x{N}) w{nbits}: relative error RTN "
+                f"{errs['rtn']:.5f}, GPTQ {errs['gptq']:.5f} "
+                f"({row['rtn_over_gptq']:.3f}x); solve {solve_s:.2f} s on "
+                f"the card ({CARD}), {cpu_s:.2f} s for 256 columns on the "
+                f"CPU; codes differing from the CPU's {differ:.6f}")
+            if not errs["gptq"] < errs["rtn"]:
+                failures.append(f"GPTQ no better than RTN at {name} "
+                                f"w{nbits}: {errs}")
+        del W, C, X, H, Xb, ref, W_cpu, H_cpu
+    counts = launch_counts()
+    if counts["affine_w4_matmul"] != 4 * len(GPTQ_SHAPES):
+        failures.append(f"14a evaluated {counts['affine_w4_matmul']} "
+                        "products through kernel 5, not one an arm")
+
+    log(f"phase 14b: calibration pipeline, 2 layers at LLaMA-2 7B width: "
+        f"Hessians and amaxes over 4 x 512 tokens, GPTQ w4a16 and w2a16, "
+        f"AWQ + w4a16, SmoothQuant + w8a8; each served; {CARD}")
+    fresh_peak(torch)
+    cfg, _ = serving_config(qt, 2)
+    params = qt.random_params(cfg, None, seed=SEED, device="cuda")
+    dense = on_card(qt, cfg, None, params)
+    batches = [torch.randint(0, cfg.vocab_size, (1, 512),
+                             generator=torch.Generator().manual_seed(SEED + i)
+                             ).cuda() for i in range(4)]
+    seconds = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with gq.collect_hessians(dense) as hessians:
+            amax = sm.calibrate_llama_amax(dense, batches)
+        torch.cuda.synchronize()
+        seconds["calibrate"] = time.perf_counter() - t
+        log(f"  calibration: {len(hessians)} Hessians, {len(amax)} amaxes "
+            f"in {seconds['calibrate']:.2f} s ({CARD})")
+        built = {}
+        for fmt in ("w4a16", "w2a16"):
+            solves = []
+            real = timed_solves(torch, gq, solves)
+            try:
+                t = time.perf_counter()
+                built[f"gptq_{fmt}"] = (fmt, gq.build_storage_gptq(
+                    params, hessians, fmt, 64, device="cuda"))
+                seconds[f"gptq_{fmt}"] = time.perf_counter() - t
+            finally:
+                gq.gptq_quantize = real
+            log(f"  GPTQ {fmt}: {seconds[f'gptq_{fmt}']:.2f} s; solves "
+                f"(K, N): s " + ", ".join(f"{k}x{n}: {s:.2f}"
+                                          for (k, n), s in solves)
+                + f" ({CARD})")
+        t = time.perf_counter()
+        alphas, awq_amax = sm.awq_search_llama(
+            dense, batches[0], weight_spec="uint4,qs=group_wise_affine,"
+            "bs=64,ax=0")
+        awq_params, _ = sm.smooth_llama(params, awq_amax, alphas)
+        built["awq_w4a16"] = ("w4a16", qt.build_storage(
+            awq_params, "w4a16", 64, device="cuda"))
+        seconds["awq_search_smooth_build"] = time.perf_counter() - t
+        sq_params, scales = sm.smooth_llama(params, amax, 0.5)
+        built["smoothquant_w8a8"] = ("w8a8", qt.build_storage(
+            sq_params, "w8a8", 64, device="cuda"))
+        lo = min(float(s.min()) for s in scales.values())
+        hi = max(float(s.max()) for s in scales.values())
+        log(f"  AWQ alphas {alphas}; search, fold and build "
+            f"{seconds['awq_search_smooth_build']:.2f} s ({CARD}); "
+            f"SmoothQuant scales in [{lo:.4g}, {hi:.4g}]")
+        # the smoothed forwards against the unsmoothed one, in f32 (naive
+        # attention) and in bf16; planted fault: layer 0's input norm gain
+        # left undivided while its qkv kernel is scaled
+        from dataclasses import replace
+        f32 = replace(cfg, dtype="float32", use_flash_attention=False)
+        ref32, _ = on_card(qt, f32, None, params)(batches[0])
+        ref, _ = dense(batches[0])
+        norm0 = "model.layers.0.input_layernorm.scale"
+        fault = {**sq_params, norm0: params[norm0]}
+        for name, sp in (("smoothquant", sq_params), ("awq", awq_params),
+                         ("planted fault, layer 0's gain undivided", fault)):
+            out32, _ = on_card(qt, f32, None, sp)(batches[0])
+            rel32 = float(torch.linalg.norm(out32 - ref32)
+                          / torch.linalg.norm(ref32))
+            out, _ = on_card(qt, cfg, None, sp)(batches[0])
+            check_close(f"{name}, bf16 forward against the unsmoothed", out,
+                        ref, 8e-2, 6e-2)
+            share = float(((out - ref).abs() > 8e-2 + 6e-2 * ref.abs())
+                          .float().mean())
+            good = rel32 <= SMOOTH_F32_BOUND and share <= SMOOTH_SHARE_CAP
+            log(f"    f32 relative error {rel32:.3g} (at most "
+                f"{SMOOTH_F32_BOUND}); bf16 share outside the bound "
+                f"{share:.3g} (at most {SMOOTH_SHARE_CAP}) "
+                f"{'ok' if good else 'BREACH'}")
+            if good == name.startswith("planted"):
+                failures.append(f"{name}: f32 {rel32:.3g}, bf16 share "
+                                f"{share:.3g}")
+        del dense, ref, ref32, out, out32, hessians
+    served = {}
+    for name, (fmt, (storage, slim)) in built.items():
+        served[name] = serve_calibrated(torch, qt, cfg, name, fmt,
+                                        {**slim, **storage}, failures)
+    del params, built
+    result = {"card": CARD, "gptq_vs_rtn": gptq_rows, "seconds": seconds,
+              "awq_alphas": alphas, "served": served}
+    log("calibration " + json.dumps(result))
+    if failures:
+        fail(f"phase 14: {failures}")
+
+
+def serve_calibrated(torch, qt, cfg, name, fmt, weights, failures):
+    """A calibrated storage model: its kernel path against the CPU's plain
+    path from shared weights (the prefill logits, format_phase's bound;
+    w8a8 statistical, and every GEMM of a prefill and a decode step fed
+    the CPU's input bit for bit), then 4 greedy requests x 16 tokens
+    through ContinuousBatchingEngine on 4 slots."""
+    from quantized_training_torch.ops import launch_counts, \
+        reset_launch_counts
+    import numpy as np
+    qc = qt.QuantConfig().with_storage(fmt, 64)
+    gpu = on_card(qt, cfg, qc, weights)
+    cpu = qt.LlamaForCausalLM(cfg, qc, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in weights.items()},
+                        assign=True)
+    S = 128
+    ids = torch.randint(0, cfg.vocab_size, (1, S),
+                        generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        g = gpu(ids.cuda(), use_cache=True, prompt_len=S)[0].cpu()
+        c = cpu(ids, use_cache=True, prompt_len=S)[0]
+    ok, _ = check_close(f"{name} prefill logits", g, c, 0.15, 0.05)
+    if fmt == "w8a8":
+        rel = float(torch.linalg.norm(g - c) / torch.linalg.norm(c))
+        bad = float(((g - c).abs() > 0.15 + 0.05 * c.abs()).float().mean())
+        log(f"    relative error {rel:.5f}, outside {bad:.6f}")
+        ok = rel <= 0.05 and bad <= 0.005
+        ok = shared_gemm_check(torch, gpu, cpu, ids, S) and ok
+    if not ok:
+        failures.append(f"{name}: kernel path disagrees with the plain path")
+    del cpu
+    engine = qt.ContinuousBatchingEngine(gpu, batch_slots=4)
+    rng = np.random.default_rng(SEED)
+    for n in (64, 200, 333, 512):
+        engine.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=16)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    kernel = "affine_w4_matmul" if fmt != "w8a8" else "int_kv_decode"
+    good = len(results) == 4 and all(
+        len(r) == 16 and all(0 <= x < cfg.vocab_size for x in r)
+        for r in results.values())
+    log(f"  {name}: 4 requests x 16 greedy tokens in {wall:.2f} s "
+        f"({CARD}); {kernel} launches {counts[kernel]}, int_kv_decode "
+        f"{counts['int_kv_decode']}")
+    if not good or not counts[kernel] or not counts["int_kv_decode"]:
+        failures.append(f"{name}: {len(results)} requests finished, "
+                        f"{kernel} {counts[kernel]} and int_kv_decode "
+                        f"{counts['int_kv_decode']} launches")
+    del engine, gpu
+    return {"engine_s": wall, "first_tokens": {
+        rid: r[:4] for rid, r in results.items()}}
 
 
 def main():
@@ -5584,6 +6138,8 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else "nvidia-smi failed"
     log(card)
+    global CARD
+    CARD = card
 
     import quantized_training_torch as qt
     from quantized_training_torch.ops import _cuda
@@ -5708,10 +6264,14 @@ def main():
     run(ptq_parity_phase, torch, qt)
     ptq = run(ptq_presets_phase, torch, qt)
     serving = run(serve_phase, torch, qt)
-    flagship = run(serve_phase, torch, qt, "kivi2", "serving_kivi")
+    flagship, flagship_weights = run(serve_phase, torch, qt, "kivi2",
+                                     "serving_kivi", keep_weights=True)
     phi3_kivi = run(serve_phase, torch, qt, "kivi2", "phi3_serving_kivi",
                     "phi3")
     phi3 = run(serve_phase, torch, qt, "int4", "phi3_serving", "phi3")
+    speculative = run(speculative_phase, torch, qt, flagship_weights)
+    del flagship_weights
+    run(calibration_phase, torch, qt)
     # each kernel's launches in the main path that runs it: the flagship
     # serving run (slice 4: the w4 GEMM, flash prefill, the KIVI decode;
     # kernel 5's 7B decode rows count the launches at their own shape),
@@ -5770,7 +6330,11 @@ def main():
                 "affine_w4_matmul_prefill_phi3", "affine_w2_matmul_prefill"):
         counter[key] = "affine_w4_matmul_prefill"
     for key, row in rows.items():
-        if key in W4_ROW_SHAPES:
+        if key == "affine_w4_matmul_verify":
+            # the verify block's launches in phase 13's run with the draft
+            row["launches"] = speculative["shapes"]["affine_w4_matmul"].get(
+                W4_ROW_SHAPES[key], 0)
+        elif key in W4_ROW_SHAPES:
             served = phi3_kivi if "phi3" in key else flagship
             row["launches"] = served["shapes"]["affine_w4_matmul"].get(
                 W4_ROW_SHAPES[key], 0)

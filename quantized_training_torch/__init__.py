@@ -18,7 +18,10 @@ step, losses and checkpoints, and 8-bit Adam with its fused packed kernel
 adapters, HF checkpoint conversion, the reference's command-line qspec
 flags, and 8-bit Adam's unpacked kernel; and Phi-3 serving -- its
 checkpoint conversion and the GQA forms (up to 8 query heads per kv head)
-of both quantized-cache decode kernels.
+of both quantized-cache decode kernels; and speculative decoding over the
+full-precision ring and the two-tier caches, with the GPTQ and
+SmoothQuant/AWQ calibration that produces the served weights
+(``quantize/gptq.py``, ``quantize/smooth.py``).
 """
 
 from .cli import add_qspec_args, quant_config_from_args
@@ -36,6 +39,7 @@ from .quantize import (FUSION_LADDER, OpCategory, QConfig, QuantConfig,
 from .serving.engine import ContinuousBatchingEngine, SamplingParams
 from .serving.generate import generate
 from .serving.kv_cache import KVCacheConfig
+from .serving.speculative import speculative_generate
 
 __all__ = [
     "BertConfig", "BertForMaskedLM", "BertForQuestionAnswering",
@@ -46,5 +50,6 @@ __all__ = [
     "LlamaConfig", "LlamaForCausalLM", "OpCategory", "QConfig", "QScheme",
     "QuantConfig", "QuantizationSpec", "SamplingParams", "build_storage",
     "fake_quantize", "fold_quantized_weights", "fuse_qkv_params", "generate",
-    "params_from_jax", "quantize_fn", "random_params", "strip_weight_specs",
+    "params_from_jax", "quantize_fn", "random_params", "speculative_generate",
+    "strip_weight_specs",
 ]

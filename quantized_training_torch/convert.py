@@ -7,8 +7,9 @@ both packages can compute with identical weights:
     sd = params_from_jax(params_np, storage_np)
     model.load_state_dict(sd)
 
-``cache_from_jax`` turns a JAX ``QuantizedKVCache`` into the port's, so
-both packages can decode from one quantized state.
+``cache_from_jax`` turns one layer of a JAX cache into the port's (a
+``QuantizedKVCache``, or the full-precision ring's ``cache_k``/``cache_v``
+variables), so both packages can decode from one state.
 
 ``adam8bit_state_from_jax`` maps the JAX package's 8-bit Adam state onto
 an :class:`~training.optim8bit.Adam8bit` of the same parameters, so both
@@ -35,7 +36,7 @@ from .models.layers import Embed, QDense, QRMSNorm
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .quantize.config import QuantConfig
 from .quantize.storage import _pack_kernel
-from .serving.kv_cache import QuantizedKVCache
+from .serving.kv_cache import FullPrecisionCache, QuantizedKVCache
 from .utils import resolve_device
 
 __all__ = ["adam8bit_state_from_jax", "bert_random_params", "cache_from_jax",
@@ -74,9 +75,15 @@ def params_from_jax(params_np: Mapping,
     return {name: _to_torch(val) for name, val in flat.items()}
 
 
-def cache_from_jax(cache_np) -> QuantizedKVCache:
-    """One layer's JAX ``QuantizedKVCache`` (fields as numpy arrays) -> the
-    port's, as CPU tensors of the same dtypes and layouts."""
+def cache_from_jax(cache_np):
+    """One layer's JAX cache (fields as numpy arrays) -> the port's, as CPU
+    tensors of the same dtypes and layouts: a ``QuantizedKVCache`` from the
+    two-tier cache, a :class:`FullPrecisionCache` from the full-precision
+    ring's ``{"cache_k": ..., "cache_v": ...}`` (the attention module's
+    cache variables)."""
+    if isinstance(cache_np, Mapping):
+        return FullPrecisionCache(_to_torch(cache_np["cache_k"]),
+                                  _to_torch(cache_np["cache_v"]))
     return QuantizedKVCache(*(_to_torch(a) for a in cache_np))
 
 

@@ -30,6 +30,7 @@ from ..qspec import QScheme, QuantizationSpec
 from ..numerics import quantize_fn
 from ..quantize.config import OpCategory, QuantConfig
 from ..quantize.fake_quant import fake_quantize, straight_through
+from ..quantize.gptq import hessian_from_inputs
 from ..quantize.storage import _eligible, storage_shapes
 from ..utils import resolve_device
 
@@ -250,6 +251,10 @@ class QDense(nn.Module, QuantMixin):
     this layer's forward input rounding (a shared q/k/v site, or the flash
     kernel's output epilogue): the value is already rounded, but the
     layer's backward error tap still attaches.
+
+    GPTQ calibration (quantize/gptq.py:collect_hessians): while
+    ``hessians`` is a dict, the dense path adds ``X^T X`` in f32 of its
+    matmul operand (after the input rounding) under the layer's ``path``.
     """
 
     def __init__(self, in_features: int, features: int, *,
@@ -278,6 +283,7 @@ class QDense(nn.Module, QuantMixin):
             self.lora_a = _param((in_features, qconfig.lora_rank), device)
             self.lora_b = _param((qconfig.lora_rank, features), device)
         self.bias = _param((features,), device) if use_bias else None
+        self.hessians = None
 
     def _input_site(self, x, skip_input_quant: bool):
         if not skip_input_quant:
@@ -347,6 +353,10 @@ class QDense(nn.Module, QuantMixin):
         else:
             kernel = self.kernel.to(self.dtype)
             x = self._input_site(x, skip_input_quant)
+            if self.hessians is not None:
+                h = hessian_from_inputs(x)
+                prev = self.hessians.get(self.path)
+                self.hessians[self.path] = h if prev is None else prev + h
             if self.lora:
                 cfg = self.qconfig
                 a, b = self.lora_a.to(self.dtype), self.lora_b.to(self.dtype)

@@ -19,10 +19,17 @@ Attention runs one of three paths:
     quantization site explicit (scores scaling, softmax input, both
     matmuls' inputs).
 
-The model speaks (B, S, H, D).  ``forward`` returns ``(logits, caches)``:
-with ``use_cache=True`` an S > 1 call is a prefill that builds one
-:class:`QuantizedKVCache` per layer and an S == 1 call is a decode step
-that appends to the caches it is given (see serving/kv_cache.py).
+The model speaks (B, S, H, D).  ``forward`` returns ``(logits, caches)``,
+one cache per layer (see serving/kv_cache.py).  With ``config.kv_cache``
+set, an S > 1 call with ``use_cache=True`` is a prefill that builds a
+:class:`QuantizedKVCache` per layer and an S == 1 call a decode step that
+appends to the caches it is given; ``decode_append=True`` appends an
+S-token block (a speculative verify block) to the residual ring instead,
+masked by ``residual_causal_mask`` on the naive path.  With
+``kv_cache=None`` the cache is the static full-precision ring
+(:class:`FullPrecisionCache`): each call writes its K/V at
+``cache_index`` and attends over the ring with the slots not yet
+written masked.
 """
 
 from dataclasses import dataclass
@@ -38,8 +45,9 @@ from ..ops.int_kv_attention import int_kv_decode_attention
 from ..ops.kivi_attention import kivi_decode_attention
 from ..quantize.config import OpCategory, QuantConfig
 from ..serving.kv_cache import (
-    MASK_VALUE, KVCacheConfig, QuantizedKVCache, append_per_slot,
+    MASK_VALUE, FullPrecisionCache, KVCacheConfig, append_per_slot,
     append_to_cache, cache_kv, init_cache, per_slot_mask, prefill_cache,
+    residual_causal_mask,
 )
 from ..utils import resolve_device
 from .layers import Embed, QDense, QRMSNorm, QSoftmax, QuantMixin
@@ -89,7 +97,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
-    # Two-tier quantized KV cache for serving; None = no cache.
+    # Two-tier (quantized) KV cache for serving; None = the static
+    # full-precision ring of max_position_embeddings slots.
     kv_cache: Optional[KVCacheConfig] = None
     # Route eligible prefill attention through the flash kernel.
     use_flash_attention: bool = False
@@ -194,7 +203,8 @@ class LlamaAttention(nn.Module, QuantMixin):
                                 dtype=cfg.torch_dtype)
 
     def forward(self, hidden, attention_mask, positions, use_cache=False,
-                cache: Optional[QuantizedKVCache] = None, prompt_len=None):
+                cache=None, prompt_len=None, cache_index=0,
+                decode_append=False):
         cfg = self.config
         dtype = cfg.torch_dtype
         B, S, _ = hidden.shape
@@ -222,24 +232,37 @@ class LlamaAttention(nn.Module, QuantMixin):
         k = apply_rope(k, cos, sin)
 
         new_cache = None
-        if use_cache:
-            kcfg = cfg.kv_cache
-            if kcfg is None:
-                raise NotImplementedError(
-                    "the full-precision decode cache is not ported yet")
+        kcfg = cfg.kv_cache
+        # a two-tier prefill may run flash: the cache write is independent
+        # of attention, and causality alone hides the padded kv slots
+        # (positions >= prompt_len) from every real query row
+        tier_prefill = (use_cache and kcfg is not None and S > 1
+                        and not decode_append)
+        if tier_prefill:
+            # attend over the raw K/V; store them in the main tier
+            # (prompt_len zeroes padded slots)
+            new_cache = prefill_cache(
+                init_cache(kcfg, B, KV, D, dtype, device=hidden.device),
+                kcfg, k, v, length=prompt_len)
+        elif use_cache and kcfg is not None:
+            # decode: one token, or an S-token verify block
+            # (decode_append), into the residual ring; nothing is ever
+            # promoted at decode, so a caller rewinds by lowering res_len
+            per_slot = cache.res_len.dim() == 1
+            if per_slot and S != 1:
+                raise ValueError("a per-slot (engine) cache decodes one "
+                                 f"token a step, got {S}")
+            c = (append_per_slot(cache, k, v) if per_slot
+                 else append_to_cache(cache, k, v))
+            new_cache = c
+            ml = c.main_len if per_slot else c.main_len.expand(B)
+            rl = c.res_len if per_slot else c.res_len.expand(B)
             if S > 1:
-                # prefill: attend over the raw K/V; store them quantized
-                # (prompt_len zeroes padded slots)
-                new_cache = prefill_cache(
-                    init_cache(kcfg, B, KV, D, dtype, device=hidden.device),
-                    kcfg, k, v, length=prompt_len)
+                # query i sees residual slots r <= res_len before + i
+                if attention_mask is None:
+                    attention_mask = residual_causal_mask(
+                        kcfg, B, S, c.main_len, c.res_len - S)
             else:
-                per_slot = cache.res_len.dim() == 1
-                c = (append_per_slot(cache, k, v) if per_slot
-                     else append_to_cache(cache, k, v))
-                new_cache = c
-                ml = c.main_len if per_slot else c.main_len.expand(B)
-                rl = c.res_len if per_slot else c.res_len.expand(B)
                 if (attention_mask is None
                         and self._int_kv_fused_eligible(kcfg)):
                     ctx = int_kv_decode_attention(
@@ -265,12 +288,25 @@ class LlamaAttention(nn.Module, QuantMixin):
                 if attention_mask is None:
                     # post-append: residual slot r visible iff r < res_len
                     attention_mask = per_slot_mask(kcfg, ml, rl - 1)
-                k, v = cache_kv(c, kcfg, dtype)
+            k, v = cache_kv(c, kcfg, dtype)
+        elif use_cache:
+            # the static full-precision ring, written at cache_index; the
+            # model's causal mask hides the slots not yet written
+            T = cfg.max_position_embeddings
+            if not 0 <= cache_index <= T - S:
+                raise ValueError(f"{S} tokens at position {cache_index} "
+                                 f"overrun the {T}-slot ring")
+            if cache is None:
+                cache = FullPrecisionCache(
+                    *(torch.zeros((B, T, KV, D), dtype=dtype,
+                                  device=hidden.device) for _ in range(2)))
+            cache.k[:, cache_index:cache_index + S] = k
+            cache.v[:, cache_index:cache_index + S] = v
+            new_cache = cache
+            k, v = cache.k, cache.v
 
-        # Prefill may run flash: causality alone hides the padded kv slots
-        # (positions >= prompt_len) from every real query row, and pad rows'
-        # outputs are never consumed.
-        if self._flash_eligible(attention_mask, use_cache, S, D):
+        if self._flash_eligible(attention_mask, use_cache, S, D,
+                                tier_prefill):
             ctx, o_prequantized = self._flash_path(q, k, v)
         else:
             ctx = self._naive_path(q, k, v, attention_mask, B, S)
@@ -324,15 +360,18 @@ class LlamaAttention(nn.Module, QuantMixin):
         return _direct_dtype(lookup(self.path, "matmul", OpCategory.GEMM,
                                     index))
 
-    def _flash_eligible(self, attention_mask, use_cache, S, D) -> bool:
+    def _flash_eligible(self, attention_mask, use_cache, S, D,
+                        tier_prefill=False) -> bool:
         """The flash gate (reference: models/llama.py:389-427): config flag
-        on, no cache or a prefill, no mask, D % 128 == 0 and S % 128 == 0
+        on, no cache or a two-tier prefill (never the full-precision ring
+        nor a decode_append block), no mask, D % 128 == 0 and S % 128 == 0
         (the reference's tiling gate, kept so both packages take the same
         branch; the kernel itself takes any S and D 64 or 128), every
         attention-matmul site off or a direct rounding, no scaling, softmax
         or posit-softmax site, and error specs, if any, one direct rounding
         on both matmul inputs."""
-        if not self.config.use_flash_attention or (use_cache and S == 1):
+        if not self.config.use_flash_attention or (use_cache
+                                                   and not tier_prefill):
             return False
         if attention_mask is not None:
             return False
@@ -447,10 +486,11 @@ class LlamaDecoderLayer(nn.Module, QuantMixin):
         self.mlp = LlamaMLP(cfg, qconfig, f"{path}.mlp", device)
 
     def forward(self, hidden, attention_mask, positions, use_cache=False,
-                cache=None, prompt_len=None):
+                cache=None, prompt_len=None, cache_index=0,
+                decode_append=False):
         attn_out, new_cache = self.self_attn(
             self.input_layernorm(hidden), attention_mask, positions,
-            use_cache, cache, prompt_len)
+            use_cache, cache, prompt_len, cache_index, decode_append)
         hidden = self.quant_residual(hidden, attn_out, hook="attn_residual")
         mlp_out = self.mlp(self.post_attention_layernorm(hidden))
         return (self.quant_residual(hidden, mlp_out, hook="mlp_residual"),
@@ -473,7 +513,7 @@ class LlamaModel(nn.Module, QuantMixin):
 
     def forward(self, input_ids, attention_mask=None, positions=None,
                 use_cache=False, caches=None, cache_index=0,
-                prompt_len=None):
+                prompt_len=None, decode_append=False):
         cfg = self.config
         B, S = input_ids.shape
         device = input_ids.device
@@ -481,7 +521,13 @@ class LlamaModel(nn.Module, QuantMixin):
         if positions is None:
             positions = (torch.arange(S, device=device)[None, :]
                          + cache_index).expand(B, S)
-        if attention_mask is None and use_cache and S > 1:
+        if attention_mask is None and use_cache and cfg.kv_cache is None:
+            # the full-precision ring: causal from cache_index, which also
+            # hides every slot not yet written
+            attention_mask = causal_mask(B, S, cfg.max_position_embeddings,
+                                         cache_index, device=device)
+        elif (attention_mask is None and use_cache and S > 1
+              and not decode_append):
             if not (cfg.use_flash_attention and cfg.head_dim % 128 == 0
                     and S % 128 == 0):
                 # prefill attends over the current tokens only; with a
@@ -494,11 +540,13 @@ class LlamaModel(nn.Module, QuantMixin):
                     attention_mask = torch.where(
                         kv_pos < torch.as_tensor(prompt_len, device=device),
                         attention_mask, MASK_VALUE)
+        # (A two-tier decode step or verify block leaves the mask None: the
+        # attention layer derives it from its cache's lengths.)
         new_caches = [] if use_cache else None
         for i, layer in enumerate(self.layers):
             hidden, c = layer(hidden, attention_mask, positions, use_cache,
                               caches[i] if caches is not None else None,
-                              prompt_len)
+                              prompt_len, cache_index, decode_append)
             if use_cache:
                 new_caches.append(c)
         return self.norm(hidden), new_caches
@@ -510,8 +558,10 @@ class LlamaForCausalLM(nn.Module, QuantMixin):
     quantize.build_storage).
 
     ``forward(input_ids, ...) -> (logits f32, caches)``; ``caches`` is None
-    unless ``use_cache``.  Runs on ``device``, CUDA by default (raises when
-    CUDA is missing; tests pass ``device="cpu"``).  A CUDA forward through
+    unless ``use_cache``: one :class:`QuantizedKVCache` per layer with
+    ``config.kv_cache``, else one :class:`FullPrecisionCache`.  Runs on
+    ``device``, CUDA by default (raises when CUDA is missing; tests pass
+    ``device="cpu"``).  A CUDA forward through
     dense (unpacked) layers needs
     ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
     False``, so that cuBLAS sums in f32 as the reference does; it raises
@@ -535,13 +585,13 @@ class LlamaForCausalLM(nn.Module, QuantMixin):
         return self.model.embed_tokens.embedding.device
 
     def forward(self, input_ids, attention_mask=None, positions=None, *,
-                use_cache: bool = False,
-                caches: Optional[List[QuantizedKVCache]] = None,
+                use_cache: bool = False, caches: Optional[List] = None,
                 cache_index: int = 0, prompt_len=None,
+                decode_append: bool = False,
                 last_logit_only: bool = False):
         hidden, new_caches = self.model(
             input_ids, attention_mask, positions, use_cache, caches,
-            cache_index, prompt_len)
+            cache_index, prompt_len, decode_append)
         if last_logit_only:
             # only the last position's logits are consumed at prefill
             hidden = hidden[:, -1:]

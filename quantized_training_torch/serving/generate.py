@@ -1,9 +1,11 @@
 """Autoregressive generation: prefill + a host loop of decode steps over the
-quantized KV cache (reference: llm_utils.py:43-112 and the KIVI-cache
-generate at llm_utils.py:501-596).
+KV cache (reference: llm_utils.py:43-112 and the KIVI-cache generate at
+llm_utils.py:501-596).
 
-Prefill runs the model over the prompt and quantizes its K/V into the main
-tier; each decode step appends one token to the bf16 residual ring.
+With a two-tier cache (``config.kv_cache``) prefill stores the prompt's
+K/V in the main tier (quantized where the config says) and each decode
+step appends one token to the bf16 residual ring; with the full-precision
+ring (``kv_cache=None``) every step writes at its position.
 Sampling supports greedy, temperature, top-k and top-p (nucleus), drawing
 from an explicit ``torch.Generator``.
 """
@@ -96,24 +98,28 @@ def generate(model, input_ids: torch.Tensor, max_new_tokens: int, *,
     returns (B, S + max_new_tokens) on the model's device (CUDA unless the
     model was built on the CPU).
 
-    The prompt is quantized into the cache's main tier with its true length
-    S, new tokens go to the residual ring; one host dispatch per token.
+    Either cache mode: with a two-tier cache the prompt goes into the main
+    tier with its true length S and new tokens to the residual ring
+    (``max_new_tokens <= max_decode``); with the full-precision ring
+    ``S + max_new_tokens <= max_position_embeddings``.  One host dispatch
+    per token.
     """
     device = model.device
     input_ids = input_ids.to(device)
     B, S = input_ids.shape
     kcfg = model.config.kv_cache
-    if kcfg is None:
-        raise NotImplementedError(
-            "generate needs a quantized KV cache config; the full-precision "
-            "cache is not ported yet")
-    if max_new_tokens > kcfg.max_decode:
+    if kcfg is not None and max_new_tokens > kcfg.max_decode:
         raise ValueError(f"max_new_tokens={max_new_tokens} exceeds the "
                          f"residual ring (max_decode={kcfg.max_decode})")
+    limit = model.config.max_position_embeddings
+    if kcfg is None and S + max_new_tokens > limit:
+        raise ValueError(f"{S} prompt + {max_new_tokens} new tokens exceed "
+                         f"the full-precision ring ({limit} positions)")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
-    logits, caches = model(input_ids, use_cache=True, prompt_len=S,
+    logits, caches = model(input_ids, use_cache=True,
+                           prompt_len=S if kcfg is not None else None,
                            last_logit_only=True)
     tokens = [_sample(logits[:, -1], generator, temperature, top_k, top_p)]
     for step in range(max_new_tokens - 1):
@@ -123,9 +129,12 @@ def generate(model, input_ids: torch.Tensor, max_new_tokens: int, *,
                               top_p))
     gen = torch.stack(tokens, dim=1).to(input_ids.dtype)
     if eos_token_id is not None:
-        # everything after the first EOS of a row becomes EOS
-        is_eos = gen == eos_token_id
-        seen = torch.cumsum(is_eos.to(torch.int32), dim=1)
-        keep = (seen - is_eos.to(torch.int32)) == 0
-        gen = torch.where(keep, gen, torch.full_like(gen, eos_token_id))
+        gen = _eos_mask(gen, eos_token_id)
     return torch.cat([input_ids, gen], dim=1)
+
+
+def _eos_mask(gen: torch.Tensor, eos_token_id: int) -> torch.Tensor:
+    """Every token after a row's first EOS becomes EOS."""
+    is_eos = (gen == eos_token_id).to(torch.int32)
+    keep = (torch.cumsum(is_eos, dim=1) - is_eos) == 0
+    return torch.where(keep, gen, torch.full_like(gen, eos_token_id))

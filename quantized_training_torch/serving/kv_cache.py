@@ -12,8 +12,12 @@ Two main-tier formats are ported:
   V along features, bf16 scale and zero point per group; uint2/uint4 codes
   either one byte each or, with ``pack=True``, token-planar packed.
 
-The full-precision decode cache (both specs None) comes with speculative
-decoding and raises.
+With both specs None (and no ``sym_bits``) the main tier keeps the
+prefill K/V unquantized, in the cache dtype (the JAX package's
+"unquantized main" two-tier cache).  The model's other full-precision
+cache, the static ring of ``LlamaConfig(kv_cache=None)``, is
+:class:`FullPrecisionCache`.  ``residual_causal_mask`` masks a
+speculative verify block appended to the residual ring.
 
 ``prefill_slot`` (raw K/V quantized into one slot) and the byte packing
 ``pack_codes``/``unpack_codes`` keep the JAX package's cache API; no serving
@@ -35,10 +39,11 @@ from ..qspec import QuantizationSpec
 from ..quantize.fake_quant import _group_affine_qparams
 from ..quantize.ops import expand_scale
 
-__all__ = ["KVCacheConfig", "QuantizedKVCache", "init_cache", "prefill_cache",
-           "prefill_slot", "append_to_cache", "append_per_slot", "cache_kv",
-           "per_slot_mask", "pack_tokens_planar", "unpack_tokens_planar",
-           "pack_codes", "unpack_codes"]
+__all__ = ["KVCacheConfig", "QuantizedKVCache", "FullPrecisionCache",
+           "init_cache", "prefill_cache", "prefill_slot", "append_to_cache",
+           "append_per_slot", "cache_kv", "per_slot_mask",
+           "residual_causal_mask", "pack_tokens_planar",
+           "unpack_tokens_planar", "pack_codes", "unpack_codes"]
 
 MASK_VALUE = float(torch.finfo(torch.bfloat16).min)
 
@@ -48,8 +53,9 @@ class KVCacheConfig(NamedTuple):
 
     ``k_spec``/``v_spec`` are the KIVI group-affine specs (axes in the
     cache's (B, KV, T, D) layout); ``pack=True`` stores their unsigned
-    1/2/4-bit codes token-planar packed.  ``sym_bits`` (4 or 8) selects the
-    per-token symmetric tier instead (both specs None).
+    1/2/4-bit codes token-planar packed.  A side whose spec is None keeps
+    its K (or V) unquantized.  ``sym_bits`` (4 or 8) selects the per-token
+    symmetric tier instead (both specs None).
     """
 
     max_prefill: int
@@ -89,17 +95,10 @@ class KVCacheConfig(NamedTuple):
         return b if b in (1, 2, 4) else None
 
 
-def _check_ported(cfg: KVCacheConfig) -> None:
-    if cfg.sym_bits is None and (cfg.k_spec is None or cfg.v_spec is None):
-        raise NotImplementedError(
-            "the full-precision decode cache (a KVCacheConfig without "
-            "k_spec/v_spec or sym_bits) is not ported yet: it comes with "
-            "speculative decoding (ROADMAP A10)")
-
-
 class QuantizedKVCache(NamedTuple):
-    """Per-layer cache state.  For the per-token symmetric tier ``k_zp`` and
-    ``v_zp`` are (1,) placeholders."""
+    """Per-layer cache state.  For the per-token symmetric tier, and for a
+    side without a spec (whose ``*_codes`` hold the raw K or V), the
+    scale and zero point are (1,) placeholders."""
 
     k_codes: torch.Tensor    # (B, KV, P or P*bits/32, D)
     k_scale: torch.Tensor    # sym: (B, KV, 1, P) f32; KIVI: (B, KV, P/bs, D) bf16
@@ -111,6 +110,16 @@ class QuantizedKVCache(NamedTuple):
     v_res: torch.Tensor
     main_len: torch.Tensor   # int32: valid tokens in the quantized tier
     res_len: torch.Tensor    # int32: valid tokens in the residual ring
+
+
+class FullPrecisionCache(NamedTuple):
+    """One layer's static full-precision ring, (B, max_position_embeddings,
+    KV, D) each, in the model layout: a forward writes its K/V at
+    ``cache_index`` in place, and the model's mask hides the slots not yet
+    written, so a caller rewinds by passing a smaller index."""
+
+    k: torch.Tensor
+    v: torch.Tensor
 
 
 def _translate_spec_axes(spec: QuantizationSpec) -> QuantizationSpec:
@@ -200,7 +209,6 @@ def _dequantize_sym_per_token(codes, scale, bits: int, dtype):
 def init_cache(cfg: KVCacheConfig, batch: int, kv_heads: int, head_dim: int,
                dtype=torch.bfloat16, *, device) -> QuantizedKVCache:
     """An empty cache with 0-d lengths."""
-    _check_ported(cfg)
     P, R = cfg.max_prefill, cfg.max_decode
     shape = (batch, kv_heads, P, head_dim)
     rshape = (batch, kv_heads, R, head_dim)
@@ -226,6 +234,11 @@ def init_cache(cfg: KVCacheConfig, batch: int, kv_heads: int, head_dim: int,
             zp.clone(), **res, **lens)
 
     def side(spec):
+        if spec is None:
+            placeholder = torch.ones((1,), dtype=torch.bfloat16,
+                                     device=device)
+            return (torch.zeros(shape, dtype=dtype, device=device),
+                    placeholder, torch.zeros_like(placeholder))
         bits = cfg._pack_bits(spec)
         if bits is None:
             codes = torch.zeros(shape, dtype=_code_dtype(spec), device=device)
@@ -246,13 +259,17 @@ def init_cache(cfg: KVCacheConfig, batch: int, kv_heads: int, head_dim: int,
 def _quantize_main(cfg: KVCacheConfig, k: torch.Tensor, v: torch.Tensor):
     """Main-tier fields of (B, KV, P, D) K/V: (k_codes, k_scale, k_zp,
     v_codes, v_scale, v_zp); the zero points are None for the per-token
-    symmetric tier."""
+    symmetric tier, scale and zero point None for a side without a spec
+    (its codes are the raw K or V)."""
     if cfg.sym_bits is not None:
         k_codes, k_scale = _quantize_sym_per_token(k, cfg.sym_bits)
         v_codes, v_scale = _quantize_sym_per_token(v, cfg.sym_bits)
         return k_codes, k_scale, None, v_codes, v_scale, None
     out = []
     for x, spec in ((k, cfg.k_spec), (v, cfg.v_spec)):
+        if spec is None:
+            out += [x, None, None]
+            continue
         codes, scale, zp = _quantize_groupwise(x, spec)
         bits = cfg._pack_bits(spec)
         if bits is not None:
@@ -271,7 +288,6 @@ def prefill_cache(cache: QuantizedKVCache, cfg: KVCacheConfig,
     padded fixed-shape prefill stores the same cache content as a
     true-length one.  The residual ring is emptied (``res_len`` 0).
     """
-    _check_ported(cfg)
     B, S, KV, D = k.shape
     P = cfg.max_prefill
     if S > P:
@@ -292,9 +308,10 @@ def prefill_cache(cache: QuantizedKVCache, cfg: KVCacheConfig,
         k = torch.where(keep, k, torch.zeros((), dtype=k.dtype, device=device))
         v = torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=device))
     kc, ks, kz, vc, vs, vz = _quantize_main(cfg, k, v)
+    keep = lambda new, old: old if new is None else new
     return cache._replace(
-        k_codes=kc, k_scale=ks, k_zp=cache.k_zp if kz is None else kz,
-        v_codes=vc, v_scale=vs, v_zp=cache.v_zp if vz is None else vz,
+        k_codes=kc, k_scale=keep(ks, cache.k_scale), k_zp=keep(kz, cache.k_zp),
+        v_codes=vc, v_scale=keep(vs, cache.v_scale), v_zp=keep(vz, cache.v_zp),
         main_len=main_len,
         res_len=torch.zeros((), dtype=torch.int32, device=device),
     )
@@ -307,7 +324,6 @@ def prefill_slot(cache: QuantizedKVCache, cfg: KVCacheConfig,
     ``slot`` of a per-slot cache ((B,) lengths), **in place**, and reset
     that slot's residual ring.  A packed cache needs S == max_prefill (the
     token-planar planes span the whole prefill extent)."""
-    _check_ported(cfg)
     if cfg.pack and k.shape[1] != cfg.max_prefill:
         raise ValueError(f"a packed cache takes a prefill of max_prefill="
                          f"{cfg.max_prefill} tokens, got {k.shape[1]}")
@@ -330,8 +346,9 @@ def prefill_slot(cache: QuantizedKVCache, cfg: KVCacheConfig,
 def append_to_cache(cache: QuantizedKVCache, k_new: torch.Tensor,
                     v_new: torch.Tensor) -> QuantizedKVCache:
     """Append decode-step K/V (B, n, KV, D) at the shared residual index
-    (0-d ``res_len``), writing the ring **in place**.  Like a dynamic
-    update slice, the start index is clamped so that the n rows fit."""
+    (0-d ``res_len``), writing the ring **in place**: one decode token, or
+    an n-token speculative verify block.  Like a dynamic update slice, the
+    start index is clamped so that the n rows fit."""
     n = k_new.shape[1]
     R = cache.k_res.shape[2]
     start = cache.res_len.clamp(0, R - n)
@@ -368,6 +385,9 @@ def _main_tier(cache: QuantizedKVCache, cfg: KVCacheConfig, dtype):
     for codes, scale, zp, spec in (
             (cache.k_codes, cache.k_scale, cache.k_zp, cfg.k_spec),
             (cache.v_codes, cache.v_scale, cache.v_zp, cfg.v_spec)):
+        if spec is None:
+            out.append(codes.to(dtype))
+            continue
         bits = cfg._pack_bits(spec)
         if bits is not None:
             codes = unpack_tokens_planar(codes, bits)
@@ -379,8 +399,7 @@ def cache_kv(cache: QuantizedKVCache, cfg: KVCacheConfig,
              dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialized (K, V) = [dequant(main); residual], each
     (B, max_prefill + max_decode, KV, D); invalid slots must be masked by
-    the caller (see per_slot_mask)."""
-    _check_ported(cfg)
+    the caller (see per_slot_mask, residual_causal_mask)."""
     k_main, v_main = _main_tier(cache, cfg, dtype)
     k = torch.cat([k_main, cache.k_res.to(dtype)], dim=2)
     v = torch.cat([v_main, cache.v_res.to(dtype)], dim=2)
@@ -399,6 +418,23 @@ def per_slot_mask(cfg: KVCacheConfig, main_len: torch.Tensor,
     in_res = (kv_pos >= P) & ((kv_pos - P) <= res_len[:, None])
     mask = torch.where(in_main | in_res, 0.0, MASK_VALUE).to(dtype)
     return mask[:, None, None, :]
+
+
+def residual_causal_mask(cfg: KVCacheConfig, batch: int, q_len: int,
+                         main_len: torch.Tensor, res_len: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Additive mask (B, 1, q_len, P+R) over [main; residual] slots for a
+    query block appended to the residual ring at ``res_len`` (0-d):
+    main slots < main_len visible, and query i sees residual slots
+    r <= res_len + i (reference: llm_utils.py:278-292)."""
+    P, R = cfg.max_prefill, cfg.max_decode
+    device = main_len.device
+    kv_pos = torch.arange(P + R, device=device)[None, :]
+    q_pos = torch.arange(q_len, device=device)[:, None]
+    in_main = kv_pos < main_len
+    in_res = (kv_pos >= P) & ((kv_pos - P) <= res_len + q_pos)
+    mask = torch.where(in_main | in_res, 0.0, MASK_VALUE).to(dtype)
+    return mask[None, None].expand(batch, 1, q_len, P + R)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ bit-equal at the train step's and BERT's leaf sizes, both decode
 kernels take every instantiated GQA group and head dim (and refuse the
 rest), and the KIVI decode holds its bounds where its split cuts the
 tokens, at empty and full tiers, past 256 K groups, and gives the same
-bits from a repeated call.  Marked
+bits from a repeated call; greedy speculative decoding over the KIVI and
+int4 caches runs its verify blocks through kernel 5 and never the fused
+decode.  Marked
 ``cuda``: without a card each test skips.  This file imports no JAX, so on
 a card's machine without JAX it runs as
 
@@ -1327,3 +1329,70 @@ def test_flash_backward_forms_match_plain(cuda_device, form, KV, D, S, T,
         if not torch.equal(got, runs[1][name]):
             bad.append(f"{name} did not repeat")
     assert not bad, bad
+
+
+def _speculative_models(cache):
+    """A small w4a16 LLaMA (hidden 256, D 128, GQA 2, fused qkv, flash
+    prefill) on a packed uint2 KIVI or int4 cache of P 128, R 24: the
+    target on the naive decode, the target on its fused decode, and the
+    target's weights on the full-precision ring (a self draft)."""
+    from dataclasses import replace
+    import quantized_training_torch as qt
+    spec = "uint2,qs=group_wise_affine,bs=32,ax={}"
+    kcfg = (kvc.KVCacheConfig.kivi(128, 24, spec.format(-2), spec.format(-1),
+                                   pack=True) if cache == "kivi2"
+            else kvc.KVCacheConfig.int_sym(128, 24, 4))
+    cfg = qt.LlamaConfig(vocab_size=512, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=2, num_key_value_heads=1,
+                         max_position_embeddings=160, kv_cache=kcfg,
+                         fused_qkv=True, use_flash_attention=True,
+                         use_fused_kivi=False)
+    qc = qt.QuantConfig().with_storage("w4a16", 64)
+    weights = qt.random_params(cfg, "w4a16", 64, seed=0, device="cuda")
+
+    def build(c):
+        model = qt.LlamaForCausalLM(c, qc, device="meta")
+        model.load_state_dict(weights, assign=True)
+        return model
+    return (build(cfg), build(replace(cfg, use_fused_kivi=True)),
+            build(replace(cfg, kv_cache=None)))
+
+
+@pytest.mark.parametrize("cache", ["kivi2", "int4"])
+def test_greedy_speculative_decoding_through_the_kernels(cuda_device, cache):
+    """Greedy speculative decoding with a self draft gives the naive
+    target alone's tokens (up to a step whose top-two logit gap is a near
+    tie) and accepts draft tokens; its verify blocks launch kernel 5 at
+    M = k + 1 and never the fused decode, which the target alone with its
+    fused decode launches once a layer a step."""
+    import quantized_training_torch as qt
+    from quantized_training_torch.ops import int_kv_attention
+    naive, fused, draft = _speculative_models(cache)
+    decode = (kivi_attention.kivi_decode_attention if cache == "kivi2"
+              else int_kv_attention.int_kv_decode_attention)
+    ids = torch.randint(0, 512, (1, 128),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    k, n = 3, 16
+    gaps = []
+    hook = naive.register_forward_hook(
+        lambda mod, args, out: gaps.append(
+            float(out[0][0, -1].float().topk(2).values.diff().abs())))
+    with torch.no_grad():
+        want = qt.generate(naive, ids, n)
+    hook.remove()
+    verify = (k + 1, 256, 512)
+    before = (aff.affine_matmul.shape_launches[verify], decode.launches)
+    got, stats = qt.speculative_generate(fused, draft, ids, n, k=k,
+                                         return_stats=True)
+    torch.cuda.synchronize()
+    assert aff.affine_matmul.shape_launches[verify] > before[0]
+    assert decode.launches == before[1]
+    assert stats["accept_rate"] > 0
+    g, w = got[0, 128:].tolist(), want[0, 128:].tolist()
+    part = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+    assert part is None or gaps[part] < 0.1, (part, gaps[part], g, w)
+    with torch.no_grad():
+        qt.generate(fused, ids, n)
+    torch.cuda.synchronize()
+    assert decode.launches - before[1] == 2 * (n - 1)

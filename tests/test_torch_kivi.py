@@ -163,8 +163,21 @@ def test_pack_codes_bit_equal_and_round_trip(bits, signed):
 
 
 def test_full_precision_cache_still_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tkv.init_cache(tkv.KVCacheConfig(P, R), B, KV, D, device="cpu")
+    """The unquantized main tier (a config without specs), which the port
+    refused until speculative decoding came: now ported, its empty and
+    prefilled caches (raw bf16 K/V, (1,) qparam placeholders) are JAX's
+    bit for bit."""
+    jcfg, tcfg = jkv.KVCacheConfig(P, R), tkv.KVCacheConfig(P, R)
+    k, v = _kv(B, 20, 4)
+    (jk, tk), (jv, tv) = _bf(k), _bf(v)
+    jc = jkv.init_cache(jcfg, B, KV, D)
+    tc = tkv.init_cache(tcfg, B, KV, D, device="cpu")
+    for name, got, want in zip(tc._fields, tc, jc):
+        _assert_same(got, want, name)
+    jc = jkv.prefill_cache(jc, jcfg, jk, jv, length=17)
+    tc = tkv.prefill_cache(tc, tcfg, tk, tv, length=17)
+    for name, got, want in zip(tc._fields, tc, jc):
+        _assert_same(got, want, name)
 
 
 # ---- the decode kernels' plain versions ----------------------------------
